@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Drive pldepth_torch on one CUDA card and check it.
+
+    python3 chip_smoke.py [--out PATH]
+
+Phases (any failure exits non-zero):
+  1. build the CUDA kernels from pldepth_torch/csrc with nvcc (sm_90a);
+     print the card's name and power limit;
+  2. K2 (fused MBConv) against its plain PyTorch version at the 16 shapes
+     the ff_effnet (EfficientNet-B0) encoder gives it at 448^2, batch 2,
+     bf16 and f32, seeded inputs, randomised BN statistics, TF32 off;
+  3. the serving slice: seeded ff_effnet weights saved and reloaded in the
+     JAX package's npz layout, then serve.pipeline.run_pipeline over 4
+     batches of 8 seeded 448^2 images with Trainer.jit_predict(fused=True);
+     32 finite (448, 448) depth maps, 16 K2 launches per forward,
+     predict_fused vs predict, and the f32 model vs the TF golden at 96^2;
+  4. times: served images/s through the pipeline; ms per batch of
+     predict_fused and predict (CUDA events); K2 per block shape beside its
+     plain version and its bound; a torch.profiler kernel breakdown of
+     predict_fused and the device's idle share.
+The line before the last is the {"kernels": [...]} record; the last is
+{"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / f32 non-tensor
+BATCH_CHECK, BATCH_SERVE, SIZE = 2, 8, 448
+# max|d| / max|ref|; bf16 measured at most 2.9e-3 over the 16 B0 shapes
+TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` in ms (CUDA events around ``reps`` calls)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def randomise_bn(module, seed: int) -> None:
+    """Seeded BN statistics and affine, so the fold matters."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.models.layers import BatchNorm
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, BatchNorm):
+                n = m.weight.numel()
+                m.weight.copy_(torch.from_numpy(rng.uniform(0.8, 1.2, n).astype(np.float32)))
+                m.bias.copy_(torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)))
+                m.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.2, n).astype(np.float32)))
+                m.running_var.copy_(torch.from_numpy(np.exp(rng.normal(0, 0.2, n)).astype(np.float32)))
+
+
+def block_cost(plan, batch: int, dtype: str):
+    """(bytes, flops) the block must move and do: read x, the weights and
+    the affine vectors once, write y once."""
+    p = plan.params
+    es = 2 if dtype == "bfloat16" else 4
+    h, w = plan.in_hw
+    cin = p.we.shape[0] if p.we is not None else p.dw.shape[-1]
+    ce, cse, cout = p.dw.shape[-1], p.se_w1.shape[-1], p.wp.shape[-1]
+    ho, wo = -(-h // plan.stride), -(-w // plan.stride)
+    mats = sum(t.numel() for t in (p.we, p.dw, p.se_w1, p.se_w2, p.wp) if t is not None)
+    vecs = sum(t.numel() for t in (p.e_scale, p.e_shift, p.d_scale, p.d_shift,
+                                   p.se_b1, p.se_b2, p.p_scale, p.p_shift) if t is not None)
+    nbytes = es * (batch * h * w * cin + batch * ho * wo * cout + mats) + 4 * vecs
+    flops = 2 * batch * (
+        (h * w * cin * ce if p.we is not None else 0)
+        + ho * wo * ce * plan.kernel ** 2
+        + ho * wo * ce  # SE pool
+        + 2 * ce * cse
+        + ho * wo * ce * cout
+    )
+    return nbytes, flops
+
+
+def block_inputs(calls, plans, batch: int, dtype, seed: int):
+    """Seeded inputs of K2 at each block's shape (a tap block's K2 input is
+    its expand activation, Ce channels)."""
+    import numpy as np
+    import torch
+
+    out = []
+    for i, ((_, p, _), plan) in enumerate(zip(calls, plans)):
+        c = p.dw.shape[-1] if p.we is None else p.we.shape[0]
+        x = np.random.default_rng(seed + i).normal(size=(batch, *plan.in_hw, c))
+        out.append(torch.from_numpy(x.astype(np.float32)).to("cuda", dtype))
+    return out
+
+
+def k2_calls(plans):
+    """K2's (params, kwargs) per block, in the form the encoder launches it."""
+    calls = []
+    for plan in plans:
+        p = plan.params
+        if plan.tap is not None:  # tap block: K2 runs the tail on the tap
+            p = p._replace(we=None, e_scale=None, e_shift=None)
+        calls.append((plan.name, p, dict(kernel=plan.kernel, stride=plan.stride,
+                                          residual=plan.residual and plan.tap is None)))
+    return calls
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="", help="also write every number here as JSON")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        import pldepth_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"pldepth_torch is not importable next to this script: {e}")
+    import numpy as np
+
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.models import get_pl_depth_net
+    from pldepth_torch.models.fused_infer import plan_encoder
+    from pldepth_torch.models.pretrained import flax_from_state_dict, overlay_synthetic
+    from pldepth_torch.ops import _build
+    from pldepth_torch.ops import fused_mbconv as k2
+    from pldepth_torch.serve.pipeline import depth_writer, run_pipeline
+    from pldepth_torch.train import Trainer
+    from pldepth_torch.train.checkpoint import load_weights_npz, save_weights_npz
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    record = {"torch": torch.__version__, "cuda": torch.version.cuda}
+
+    # 1. build ---------------------------------------------------------------
+    t0 = time.time()
+    reports = _build.build()
+    record["build_s"] = time.time() - t0
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+    log(f"built {sorted(_build.SIGNATURES)} in {record['build_s']:.1f} s "
+        f"(compiled now: {sorted(reports)})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    card = torch.cuda.get_device_name(0)
+    record["card"], record["nvidia_smi"] = card, smi
+    log(smi)
+
+    # 2. K2 against its plain version at the B0 448^2 shapes ------------------
+    b0 = get_pl_depth_net("ff_effnet", "float32").init_module(
+        torch.Generator().manual_seed(0), "cuda")
+    randomise_bn(b0, seed=1)
+    checks, max_abs_err = [], 0.0
+    for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        plans = plan_encoder(b0.encoder, (SIZE, SIZE), dtype)
+        calls = k2_calls(plans)
+        xs = block_inputs(calls, plans, BATCH_CHECK, dtype, seed=100)
+        for (name, p, kw), x in zip(calls, xs):
+            got = k2.fused_mbconv_infer(x, p, **kw).float()
+            torch.cuda.synchronize()
+            want = k2.mbconv_infer_plain(x, p, **kw).float()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                fail(f"K2 {name} {dname}: shape {tuple(got.shape)} or non-finite")
+            err = float((got - want).abs().max())
+            rel = err / max(float(want.abs().max()), 1e-12)
+            checks.append({"block": name, "dtype": dname, "shape": list(x.shape),
+                           "max_abs_err": err, "rel": rel, "tol": TOL[dname]})
+            log(f"K2 vs plain {name:14s} {dname:8s} x{tuple(x.shape)} "
+                f"max|d| {err:.3e} rel {rel:.3e} (tol {TOL[dname]:g})")
+            if rel > TOL[dname]:
+                fail(f"K2 {name} {dname} disagrees with its plain version: rel {rel:.3e}")
+            if dname == "bfloat16":
+                max_abs_err = max(max_abs_err, err)
+    record["k2_checks"] = checks
+
+    # 3. the serving slice ------------------------------------------------------
+    cfg = ExperimentConfig(model_name="ff_effnet", input_size=SIZE)
+    trainer = Trainer(cfg, steps_per_epoch=1)
+    seeded = trainer.init_state()
+    names = list(flax_from_state_dict(seeded.model.state_dict()))
+    overlay_synthetic(seeded.model, names)
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath = os.path.join(tmp, "weights.npz")
+        save_weights_npz(wpath, seeded)
+        state = load_weights_npz(wpath, trainer.init_state(torch.Generator().manual_seed(7)))
+        for k, v in seeded.model.state_dict().items():
+            if not torch.equal(v, state.model.state_dict()[k]):
+                fail(f"weights changed through save/load: {k}")
+
+        n_batches = 4
+        chunks = [[f"img{b * BATCH_SERVE + i:02d}" for i in range(BATCH_SERVE)]
+                  for b in range(n_batches)]
+
+        def decode(chunk):
+            seed = int(chunk[0][3:])
+            return np.random.default_rng(seed).uniform(
+                size=(len(chunk), SIZE, SIZE, 3)).astype(np.float32)
+
+        out_dir = os.path.join(tmp, "depth")
+        os.makedirs(out_dir)
+        serve = trainer.jit_predict(fused=True)
+        write = depth_writer(out_dir, save_png=False, stems={f: f for c in chunks for f in c})
+        k2.fused_mbconv_infer.launches = 0
+        t0 = time.time()
+        run_pipeline(chunks, decode, lambda imgs: serve(state, imgs), write)
+        record["pipeline_s_cold"] = time.time() - t0
+        launches = k2.fused_mbconv_infer.launches
+        files = sorted(os.listdir(out_dir))
+        if len(files) != 32:
+            fail(f"expected 32 depth maps, found {len(files)}")
+        for f in files:
+            d = np.load(os.path.join(out_dir, f))
+            if d.shape != (SIZE, SIZE) or not np.isfinite(d).all():
+                fail(f"{f}: shape {d.shape} or non-finite values")
+    log(f"served {len(files)} depth maps (448, 448), finite; K2 launches {launches} "
+        f"over {n_batches} forwards")
+    if launches != 16 * n_batches:
+        fail(f"K2 launched {launches} times over {n_batches} forwards, expected 16 each")
+    record["k2_launches_main_path"] = launches
+
+    imgs = torch.from_numpy(decode(chunks[0])).cuda()
+    a = trainer.predict(state, imgs).float()
+    b = trainer.predict_fused(state, imgs).float()
+    rel = float((a - b).abs().max() / a.abs().max())
+    record["fused_vs_predict_rel_bf16"] = rel
+    log(f"predict_fused vs predict, ff_effnet bf16 {SIZE}^2 batch {BATCH_SERVE}: rel {rel:.3e} (tol 0.03)")
+    if rel > 0.03:
+        fail(f"predict_fused disagrees with predict: rel {rel:.3e}")
+
+    golden_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "tests", "golden", "full_model_ff_effnet.npz")
+    gold = np.load(golden_path)
+    gcfg = ExperimentConfig(model_name="ff_effnet", input_size=96, compute_dtype="float32")
+    gtr = Trainer(gcfg, steps_per_epoch=1)
+    gstate = gtr.init_state()
+    overlay_synthetic(gstate.model, gold["names"])
+    ref = gold["ref_infer"][..., 0]
+    for fn, tol in (("predict", 5e-5), ("predict_fused", 2e-4)):
+        out = getattr(gtr, fn)(gstate, gold["x_raw"] / 255.0).cpu().numpy()
+        grel = float(np.abs(out - ref).max() / np.abs(ref).max())
+        record[f"golden_rel_{fn}"] = grel
+        log(f"ff_effnet f32 96^2 {fn} vs TF golden: rel {grel:.3e} (tol {tol:g})")
+        if grel > tol:
+            fail(f"{fn} disagrees with the TF golden: rel {grel:.3e}")
+
+    # 4. times --------------------------------------------------------------------
+    # end to end, warm: host arrays in -> depth files out through the
+    # pipeline (decode is a lookup here, so this times H2D, the forward,
+    # D2H and the writes, not image decoding)
+    n_e2e = 8
+    batches = [decode(c) for c in chunks] * (n_e2e // n_batches)
+    e2e_chunks = [[f"e{b}_{i}" for i in range(BATCH_SERVE)] for b in range(n_e2e)]
+    index = {c[0]: b for b, c in enumerate(e2e_chunks)}
+    with tempfile.TemporaryDirectory() as tmp:
+        write = depth_writer(tmp, save_png=False, stems={f: f for c in e2e_chunks for f in c})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_pipeline(e2e_chunks, lambda c: batches[index[c[0]]],
+                     lambda imgs: serve(state, imgs), write)
+        wall = time.perf_counter() - t0
+    record["served_img_per_s"] = n_e2e * BATCH_SERVE / wall
+    log(f"served {n_e2e * BATCH_SERVE} images through the pipeline (warm, fused): "
+        f"{record['served_img_per_s']:.1f} img/s, {wall * 1e3 / n_e2e:.3f} ms per batch [{smi}]")
+
+    # alternating rounds (fused, plain, plain, fused, ...): host-side launch
+    # overhead makes single timings of these many-op forwards noisy
+    samples = {"predict_fused": [], "predict": []}
+    for r in range(6):
+        for fn in (("predict_fused", "predict") if r % 2 == 0 else ("predict", "predict_fused")):
+            f = getattr(trainer, fn)
+            samples[fn].append(cuda_ms(lambda: f(state, imgs), reps=10))
+    times = {fn: float(np.median(v)) for fn, v in samples.items()}
+    for fn, v in samples.items():
+        log(f"{fn}: {times[fn]:.3f} ms per batch of {BATCH_SERVE} at {SIZE}^2 bf16 (median of "
+            f"{len(v)} rounds of 10, min {min(v):.3f}, max {max(v):.3f}) [{smi}]")
+    record["batch_ms"] = times
+    record["batch_ms_samples"] = samples
+
+    plans = trainer._plan(state.model, (SIZE, SIZE))
+    calls = k2_calls(plans)
+    xs = block_inputs(calls, plans, BATCH_SERVE, torch.bfloat16, seed=200)
+    per_block, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                          "bound_ms": 0.0}
+    for plan, (name, p, kw), x in zip(plans, calls, xs):
+        ms = cuda_ms(lambda: k2.fused_mbconv_infer(x, p, **kw))
+        pms = cuda_ms(lambda: k2.mbconv_infer_plain(x, p, **kw))
+        kplan = plan._replace(params=p)
+        nbytes, flops = block_cost(kplan, BATCH_SERVE, "bfloat16")
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+        row = {"block": name, "x": list(x.shape), "kernel": kw["kernel"], "stride": kw["stride"],
+               "ms": ms, "plain_ms": pms, "bytes": nbytes, "flops": flops,
+               "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
+        per_block.append(row)
+        for k in tot:
+            tot[k] += row[k]
+        log(f"K2 {name:14s} x{tuple(x.shape)} k{kw['kernel']} s{kw['stride']}: "
+            f"{ms:.4f} ms, plain {pms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) [{smi}]")
+    record["k2_blocks_bf16_batch8"] = per_block
+    record["k2_totals"] = tot
+    log(f"K2 per forward (16 blocks, batch {BATCH_SERVE}): {tot['ms']:.3f} ms, "
+        f"plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms [{smi}]")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            trainer.predict_fused(state, imgs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=25)
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3  # kernels only
+    log(table)
+    # idle share against the unprofiled batch time (the profiler's own
+    # host overhead stretches the profiled wall)
+    idle = 1 - busy_ms / n_prof / times["predict_fused"]
+    log(f"profiled predict_fused x{n_prof}: device busy {busy_ms / n_prof:.3f} ms per "
+        f"batch; unprofiled batch {times['predict_fused']:.3f} ms -> idle share "
+        f"{idle:.3f} (profiled wall {wall_ms / n_prof:.3f} ms) [{smi}]")
+    record["profile_table"] = table
+    record["profile"] = {"calls": n_prof, "device_busy_ms": busy_ms,
+                         "profiled_wall_ms": wall_ms, "idle_share": idle}
+
+    kernels = [{
+        "name": "fused_mbconv", "route": "cuda",
+        "source": "pldepth_torch/csrc/fused_mbconv.cu",
+        "replaces": "pldepth_tpu/ops/fused_mbconv.py:104",
+        "launches": launches, "max_abs_err": max_abs_err,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+        "library_ms": None,
+    }]
+    record["kernels"] = kernels
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(record, f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""Host-side image decode and resize (``pldepth_tpu/data/io.py``).
+
+PIL is imported inside :func:`read_image` only, so the rest of the port
+imports on a host without it. The host resize runs ``F.interpolate`` on the
+CPU on TF's half-pixel grid (1.2e-7 from ``jax.image.resize``); the JAX
+package uses cv2 ``INTER_LINEAR``, the same grid with fixed-point
+coefficients. Measured gap between the two on [0,1] float32 images resized
+to 448x448: 5.8e-5 from 480x640, 1.4e-4 from 1080x1920, against an 8-bit
+step of 3.9e-3 (tests/test_torch_resize.py holds it at 2e-4).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from pldepth_torch.ops.resize import resize_bilinear as _resize_nhwc
+
+
+def read_image(path: str, num_channels: int = 3) -> np.ndarray:
+    """Decode jpg/png to float32 [0,1], shape (H, W, C)."""
+    from PIL import Image
+
+    img = Image.open(path)
+    if num_channels == 3:
+        img = img.convert("RGB")
+    elif num_channels == 1 and img.mode not in ("L", "I", "I;16"):
+        img = img.convert("L")
+    arr = np.asarray(img)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if arr.dtype == np.uint16 or img.mode in ("I", "I;16"):
+        # 16-bit grayscale PNGs decode as mode "I"
+        return arr.astype(np.float32) / 65535.0
+    return arr.astype(np.float32) / 255.0
+
+
+def resize_bilinear(arr: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """(H, W[, C]) -> (size[0], size[1][, C]), TF-convention bilinear."""
+    a = np.asarray(arr, np.float32)
+    squeeze = a.ndim == 2
+    t = torch.from_numpy(np.ascontiguousarray(a[..., None] if squeeze else a))
+    out = _resize_nhwc(t, size).numpy()
+    return out[..., 0] if squeeze else out

@@ -1,0 +1,167 @@
+"""EfficientNet encoder family (B0..B7, smoke) with decoder feature taps.
+
+Port of ``pldepth_tpu/models/efficientnet.py``: NHWC tensors, f32 params
+cast to the compute dtype at use, f32 batch-norm with eps 1e-3. Submodule
+names are the flax ones (``stem_conv``, ``stage2_block0.dw_conv``,
+``se.reduce`` ...), so models/pretrained.py maps weights by name alone.
+Inference only (running-statistics BN, no drop-path): the training forward
+comes with the training slice (ROADMAP.md queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from pldepth_torch.models.layers import BatchNorm, Conv, swish
+
+# (expand_ratio, channels, repeats, stride, kernel) for B0, per stage 1..7.
+_STAGE_DEFS = (
+    (1, 16, 1, 1, 3),
+    (6, 24, 2, 2, 3),
+    (6, 40, 2, 2, 5),
+    (6, 80, 3, 2, 3),
+    (6, 112, 3, 1, 5),
+    (6, 192, 4, 2, 5),
+    (6, 320, 1, 1, 3),
+)
+
+# width_coefficient, depth_coefficient; "smoke" is the 7-block CI scaling
+VARIANTS: Dict[str, Tuple[float, float]] = {
+    "smoke": (0.25, 0.25),
+    "b0": (1.0, 1.0),
+    "b1": (1.0, 1.1),
+    "b2": (1.1, 1.2),
+    "b3": (1.2, 1.4),
+    "b4": (1.4, 1.8),
+    "b5": (1.6, 2.2),
+    "b6": (1.8, 2.6),
+    "b7": (2.0, 3.1),
+}
+
+# stages whose first-block expand activation feeds the decoder
+DECODER_TAP_STAGES = (3, 4, 6)
+
+
+def round_filters(filters: int, width: float, divisor: int = 8) -> int:
+    filters *= width
+    new = max(divisor, int(filters + divisor / 2) // divisor * divisor)
+    if new < 0.9 * filters:
+        new += divisor
+    return int(new)
+
+
+def round_repeats(repeats: int, depth: float) -> int:
+    return int(math.ceil(depth * repeats))
+
+
+def _no_train(train: bool) -> None:
+    if train:
+        raise NotImplementedError(
+            "the training forward (batch statistics, drop-path) is not ported "
+            "yet: ROADMAP.md queue 1 item 6")
+
+
+class SqueezeExcite(nn.Module):
+    def __init__(self, ch: int, reduce_ch: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.reduce = Conv(ch, reduce_ch, 1, dtype=dtype)
+        self.expand = Conv(reduce_ch, ch, 1, dtype=dtype)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        se = x.to(torch.float32).mean(dim=(1, 2), keepdim=True)
+        se = swish(self.reduce(se.to(self.dtype)))
+        se = self.expand(se)
+        gate = torch.sigmoid(se.to(torch.float32)).to(x.dtype)
+        return x * gate
+
+
+class MBConv(nn.Module):
+    """Mobile inverted bottleneck with SE; returns (out, expand_act)."""
+
+    def __init__(self, in_ch: int, out_ch: int, expand: int, kernel: int,
+                 stride: int, se_ratio: float = 0.25,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.in_ch, self.out_ch, self.expand = in_ch, out_ch, expand
+        self.kernel, self.stride = kernel, stride
+        self.dtype = dtype
+        ce = in_ch * expand
+        if expand != 1:
+            self.expand_conv = Conv(in_ch, ce, 1, bias=False, dtype=dtype)
+            self.expand_bn = BatchNorm(ce)
+        self.dw_conv = Conv(ce, ce, kernel, stride=stride, groups=ce, bias=False,
+                            dtype=dtype)
+        self.dw_bn = BatchNorm(ce)
+        self.se = SqueezeExcite(ce, max(1, int(in_ch * se_ratio)), dtype=dtype)
+        self.project_conv = Conv(ce, out_ch, 1, bias=False, dtype=dtype)
+        self.project_bn = BatchNorm(out_ch)
+
+    @property
+    def residual(self) -> bool:
+        return self.stride == 1 and self.in_ch == self.out_ch
+
+    def forward(self, x: torch.Tensor, train: bool = False):
+        _no_train(train)
+        dt = self.dtype
+        inputs = x
+        expand_act = None
+        if self.expand != 1:
+            x = swish(self.expand_bn(self.expand_conv(x)).to(dt))
+            expand_act = x  # "blockXa_expand_activation" tap point
+        x = swish(self.dw_bn(self.dw_conv(x)).to(dt))
+        x = self.se(x)
+        x = self.project_bn(self.project_conv(x)).to(dt)
+        if self.residual:
+            x = x + inputs
+        return x, expand_act
+
+
+class EfficientNetEncoder(nn.Module):
+    """Returns ``(top, taps)``: the 1/32 top activation and decoder taps
+    {"expand_3": 1/4 res, "expand_4": 1/8, "expand_6": 1/16}."""
+
+    def __init__(self, variant: str = "b0", dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.variant, self.dtype = variant, dtype
+        width, depth = VARIANTS[variant]
+        stem_ch = round_filters(32, width)
+        self.stem_conv = Conv(3, stem_ch, 3, stride=2, bias=False, dtype=dtype)
+        self.stem_bn = BatchNorm(stem_ch)
+        self.block_names = []
+        self.tap_channels: Dict[str, int] = {}
+        in_ch = stem_ch
+        for stage_num, (expand, ch, repeats, stride, kernel) in enumerate(
+            _STAGE_DEFS, start=1
+        ):
+            out_ch = round_filters(ch, width)
+            for i in range(round_repeats(repeats, depth)):
+                name = f"stage{stage_num}_block{i}"
+                self.add_module(name, MBConv(
+                    in_ch, out_ch, expand, kernel, stride if i == 0 else 1,
+                    dtype=dtype,
+                ))
+                self.block_names.append(name)
+                if i == 0 and stage_num in DECODER_TAP_STAGES:
+                    self.tap_channels[f"expand_{stage_num}"] = in_ch * expand
+                in_ch = out_ch
+        self.top_ch = round_filters(1280, width)
+        self.top_conv = Conv(in_ch, self.top_ch, 1, bias=False, dtype=dtype)
+        self.top_bn = BatchNorm(self.top_ch)
+
+    def forward(self, x: torch.Tensor, train: bool = False):
+        _no_train(train)
+        dt = self.dtype
+        x = swish(self.stem_bn(self.stem_conv(x.to(dt))).to(dt))
+        taps: Dict[str, torch.Tensor] = {}
+        for name in self.block_names:
+            x, expand_act = getattr(self, name)(x)
+            stage, i = name[len("stage"):].split("_block")
+            if i == "0" and int(stage) in DECODER_TAP_STAGES:
+                taps[f"expand_{stage}"] = expand_act
+        x = swish(self.top_bn(self.top_conv(x)).to(dt))
+        return x, taps

@@ -1,0 +1,34 @@
+"""Bilinear resizing with TF2 semantics, NHWC at the interface.
+
+The JAX package resizes with ``jax.image.resize(method='bilinear',
+antialias=False)`` (``pldepth_tpu/ops/resize.py``): half-pixel centres and
+edge clamping, the grid of ``tf.image.resize`` and Keras
+``UpSampling2D(interpolation='bilinear')``. ``F.interpolate`` with
+``align_corners=False, antialias=False`` samples the same grid
+(tests/test_torch_resize.py holds it against tests/golden/tf_resize.npz).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def resize_bilinear(img: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Bilinear resize of (..., H, W, C) to (..., size[0], size[1], C)."""
+    lead = img.shape[:-3]
+    h, w, c = img.shape[-3:]
+    x = img.reshape(-1, h, w, c).permute(0, 3, 1, 2)
+    y = F.interpolate(x, size=(int(size[0]), int(size[1])), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1).reshape(*lead, int(size[0]), int(size[1]), c)
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """Keras UpSampling2D(interpolation='bilinear') equivalent, NHWC."""
+    n, h, w, c = x.shape
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(2 * h, 2 * w),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)

@@ -1,0 +1,91 @@
+"""Card-only tests of the port (``cuda`` marker; skipped without a card).
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch: ``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda.py`` (tests/conftest.py imports JAX). K2 is held
+against its plain version at small, odd shapes: f32 at max|d| <= 1e-4
+max|ref| (TF32 off), bf16 at 2e-2 (one bf16 rounding of g or of the scale
+may land on the other side)."""
+
+import numpy as np
+import pytest
+import torch
+
+from pldepth_torch.ops import fused_mbconv as k2
+
+CASES = [(3, 1, True, True), (3, 2, True, False), (5, 1, True, True),
+         (5, 2, True, False), (3, 1, False, False), (5, 2, False, False)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(case, hw, batch, cin, seed=0):
+    k, stride, expand, residual = case
+    ce = cin * (6 if expand else 1)
+    cout, cse = cin, max(1, cin // 4)
+    rng = np.random.default_rng(seed)
+    f = lambda shape, s=0.2: torch.from_numpy((rng.normal(size=shape) * s).astype(np.float32))
+    p = k2.MBConvParams(
+        we=f((cin, ce)) if expand else None,
+        e_scale=1.0 + f((ce,), 0.05) if expand else None,
+        e_shift=f((ce,), 0.05) if expand else None,
+        dw=f((k, k, ce)), d_scale=1.0 + f((ce,), 0.05), d_shift=f((ce,), 0.05),
+        se_w1=f((ce, cse)), se_b1=f((cse,)), se_w2=f((cse, ce)), se_b2=f((ce,)),
+        wp=f((ce, cout)), p_scale=1.0 + f((cout,), 0.05), p_shift=f((cout,), 0.05),
+    )
+    x = f((batch, *hw, cin), 1.0)
+    return x, p, dict(kernel=k, stride=stride, residual=residual)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,cin", [((33, 30), 8), ((14, 14), 40)])
+def test_kernel_matches_plain(case, dtype, hw, cin, cuda_device):
+    x, p, kw = _case(case, hw, 3, cin)
+    xd = x.to(cuda_device, dtype)
+    pd = k2.cast_params(k2.MBConvParams(*[None if v is None else v.to(cuda_device) for v in p]), dtype)
+    before = k2.fused_mbconv_infer.launches
+    got = k2.fused_mbconv_infer(xd, pd, **kw).float()
+    torch.cuda.synchronize()
+    assert k2.fused_mbconv_infer.launches == before + 1
+    want = k2.mbconv_infer_plain(xd, pd, **kw).float()
+    assert got.shape == want.shape
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= tol, rel
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_does_not_take(cuda_device):
+    x, p, kw = _case(CASES[0], (8, 8), 1, 8)
+    pd = k2.MBConvParams(*[None if v is None else v.to(cuda_device) for v in p])
+    xd = x.to(cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.fused_mbconv_infer(xd.transpose(1, 2), pd, **kw)
+    with pytest.raises(ValueError, match="is on cpu"):
+        k2.fused_mbconv_infer(xd, p, **kw)
+
+
+@pytest.mark.cuda
+def test_predict_fused_on_the_card_matches_predict(cuda_device):
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.train import Trainer
+
+    for dt, tol in (("float32", 2e-4), ("bfloat16", 0.03)):
+        cfg = ExperimentConfig(model_name="ff_smoke", input_size=64, compute_dtype=dt)
+        trainer = Trainer(cfg)
+        state = trainer.init_state()
+        imgs = np.random.default_rng(1).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+        before = k2.fused_mbconv_infer.launches
+        a = trainer.predict(state, imgs).float()
+        b = trainer.predict_fused(state, imgs).float()
+        assert k2.fused_mbconv_infer.launches - before == len(state.model.encoder.block_names)
+        assert float((a - b).abs().max() / a.abs().max()) <= tol
