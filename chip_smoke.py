@@ -17,7 +17,22 @@ Phases (any failure exits non-zero):
   4. times: served images/s through the pipeline; ms per batch of
      predict_fused and predict (CUDA events); K2 per block shape beside its
      plain version and its bound; a torch.profiler kernel breakdown of
-     predict_fused and the device's idle share.
+     predict_fused and the device's idle share;
+  5. K1 (the sorted ListMLE NLL, forward and backward) against its plain
+     PyTorch version in f32 at K in {3, 5, 25, 128, 500} x N in {1, 257,
+     3200}, and on a list whose scores spread by more than 87;
+  6. the training slice: configs/ff_effnet_448.json at batch 32 (448^2,
+     K=5, RPI=100, info_score, frozen encoder, bf16) on a seeded synthetic
+     448^2 set through Trainer.fit, 20 steps with validation: finite
+     losses, K1 forward launches == steps + val batches and backward
+     launches == steps, frozen encoder convs bitwise unchanged, every BN's
+     affine and running statistics moved, and the fixed-rankings loss of a
+     batch trained on repeatedly falls;
+  7. training times: ms per train step (CUDA events, rounds alternating
+     the K1 loss with the plain one), train images/s through fit, peak
+     device memory, the device idle share of a 3-step profiler window with
+     the top kernels, and K1 at N=3200, K=5 beside its plain version, its
+     bytes bound and one PyTorch call.
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -37,6 +52,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / f32 n
 BATCH_CHECK, BATCH_SERVE, SIZE = 2, 8, 448
 # max|d| / max|ref|; bf16 measured at most 2.9e-3 over the 16 B0 shapes
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# K1 vs its plain version, f32: the same recurrences in another order; the
+# rounding of a sum of K terms grows with K (measured at most 8.1e-6 of
+# max|ref| at K=500, 1.1e-6 at K<=25); max|d| <= K1_ATOL + K1_RTOL * max|ref|
+K1_RTOL, K1_ATOL = 3e-5, 1e-5
+K1_SHAPES = [(n, k) for k in (3, 5, 25, 128, 500) for n in (1, 257, 3200)]
+BATCH_TRAIN, N_TRAIN, N_VAL, EPOCHS = 32, 64, 32, 10  # 2 steps + 1 val batch per epoch
 
 
 def fail(msg: str) -> None:
@@ -130,6 +151,271 @@ def k2_calls(plans):
                                           residual=plan.residual and plan.tap is None)))
     return calls
 
+
+def k1_cost(n: int, k: int):
+    """(bytes, ops) of K1 forward and backward on (n, k) f32 lists: each
+    input read once, each output written once; ~8 f32 operations per
+    element of the forward recurrence, ~11 of the backward one."""
+    fwd = (4 * (2 * n * k + n), 8 * n * max(k - 1, 1))
+    bwd = (4 * (3 * n * k + n), 11 * n * k)
+    return fwd, bwd
+
+
+def bound_ms(nbytes: float, ops: float, peak: float):
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_k1(device="cuda"):
+    """Phase 5: K1 against its plain version at every listed (N, K) and on
+    the spread > 87 list. Returns (checks, max|d| forward, max|d| backward)."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    def one(name, s, g):
+        nll, lse = k1.listmle_fwd(s)
+        ds = k1.listmle_bwd(s, lse, g)
+        if s.is_cuda:
+            torch.cuda.synchronize()
+        want_nll, want_lse = k1.listmle_fwd_plain(s)
+        want_ds = k1.listmle_bwd_plain(s, want_lse, g)
+        row = {"case": name, "n": s.shape[0], "k": s.shape[1]}
+        for key, got, want in (("nll", nll, want_nll), ("lse", lse, want_lse), ("ds", ds, want_ds)):
+            if not torch.isfinite(got).all():
+                fail(f"K1 {name}: non-finite {key}")
+            err = float((got - want).abs().max())
+            ref = float(want.abs().max())
+            row[key] = {"max_abs_err": err, "rel": err / max(ref, 1e-12)}
+            if err > K1_ATOL + K1_RTOL * ref:
+                fail(f"K1 {name} {key} disagrees with its plain version: max|d| {err:.3e} "
+                     f"(max|ref| {ref:.3e})")
+        log(f"K1 vs plain {name:18s} nll max|d| {row['nll']['max_abs_err']:.3e} rel "
+            f"{row['nll']['rel']:.3e}; lse {row['lse']['max_abs_err']:.3e}; ds max|d| "
+            f"{row['ds']['max_abs_err']:.3e} rel {row['ds']['rel']:.3e} "
+            f"(tol {K1_ATOL:g} + {K1_RTOL:g} max|ref|)")
+        return row, nll, ds
+
+    checks = []
+    for n, k in K1_SHAPES:
+        rng = np.random.default_rng(1000 * k + n)
+        s = torch.from_numpy((rng.normal(size=(n, k)) * 3).astype(np.float32)).to(device)
+        g = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).to(device)
+        checks.append(one(f"N={n} K={k}", s, g)[0])
+    spread = torch.tensor([[0.0, -50.0, -120.0], [5.0, -100.0, -230.0]], device=device)
+    row, nll, ds = one("spread>87", spread, torch.ones(2, device=device))
+    if float(nll.abs().max()) > 1e-6 or float(ds.abs().max()) > 1e-4:
+        fail(f"K1 spread>87 list: nll {nll.tolist()} ds max {float(ds.abs().max()):.3e}")
+    checks.append(row)
+    return (checks, max(c[key]["max_abs_err"] for c in checks for key in ("nll", "lse")),
+            max(c["ds"]["max_abs_err"] for c in checks))
+
+
+def train_phase(model_name="ff_effnet", size=SIZE, batch=BATCH_TRAIN, n_train=N_TRAIN,
+                n_val=N_VAL, epochs=EPOCHS, device="cuda"):
+    """Phase 6: the training slice through Trainer.fit. Returns (trainer,
+    state, cfg, record)."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.data.pipeline import BatchIterator, pregenerate_val_rankings, val_batches
+    from pldepth_torch.models.layers import BatchNorm
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.train import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", "ff_effnet_448.json")) as f:
+        cfg = ExperimentConfig.from_json(f.read())
+    cfg = cfg.replace(model_name=model_name, input_size=size, batch_size=batch, epochs=epochs,
+                      dataset="synthetic")
+    t0 = time.time()
+    train_ds = SyntheticDepthDataset(n_train, size, seed=0).cached()
+    val_ds = SyntheticDepthDataset(n_val, size, seed=1).cached()
+    steps_per_epoch = n_train // batch
+    trainer = Trainer(cfg, steps_per_epoch, device=device)
+    state = trainer.init_state()
+    rk = dict(sampler_name="thresholded", rankings_per_image=cfg.val_rpi,
+              ranking_size=cfg.ranking_size, threshold=cfg.equality_threshold, seed=cfg.seed,
+              device=device)
+    val_rankings = pregenerate_val_rankings(val_ds, **rk)
+    # a batch the run trains on every epoch, with fixed rankings
+    probe = {"image": np.stack([train_ds[i]["image"] for i in range(batch)]),
+             "rankings": pregenerate_val_rankings(train_ds.take(batch), **rk)}
+    probe_before = float(trainer.eval_step(state, probe))
+    setup_s = time.time() - t0
+
+    model = state.model
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+    bns = {n: m for n, m in model.named_modules() if isinstance(m, BatchNorm)}
+    bn_before = {n: [t.detach().clone() for t in (m.weight, m.bias, m.running_mean,
+                                                  m.running_var)] for n, m in bns.items()}
+    n_val_batches = len(val_ds) // batch
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    it = BatchIterator(train_ds, batch, seed=cfg.seed, prefetch=cfg.prefetch_depth)
+    k1.listmle_fwd.launches = k1.listmle_bwd.launches = 0
+    t0 = time.time()
+    state, history = trainer.fit(state, it, val_iter_factory=lambda: val_batches(
+        val_ds, val_rankings, batch))
+    fit_s = time.time() - t0
+    launches = {"listmle_fwd": k1.listmle_fwd.launches, "listmle_bwd": k1.listmle_bwd.launches}
+    it.close()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
+    n_steps = state.step
+    probe_after = float(trainer.eval_step(state, probe))
+
+    losses = history["loss"] + history["val_loss"]
+    log(f"fit: {n_steps} steps of {model_name} {size}^2 batch {batch} in {fit_s:.2f} s; "
+        f"epoch losses {[round(x, 4) for x in history['loss']]}; val "
+        f"{[round(x, 4) for x in history['val_loss']]}; fixed-rankings loss of a trained batch "
+        f"{probe_before:.4f} -> {probe_after:.4f}; K1 launches {launches}")
+    if n_steps != epochs * steps_per_epoch or not np.all(np.isfinite(losses)):
+        fail(f"training did not run {epochs * steps_per_epoch} finite steps: {history}")
+    want_fwd = n_steps + epochs * n_val_batches
+    if device == "cuda" and (launches["listmle_fwd"] != want_fwd or
+                             launches["listmle_bwd"] != n_steps):
+        fail(f"K1 launches {launches}, expected forward {want_fwd} (steps + val batches) "
+             f"and backward {n_steps}")
+    params = dict(model.named_parameters())
+    moved_frozen = [n for n, v in frozen.items() if not torch.equal(params[n], v)]
+    if not frozen or moved_frozen:
+        fail(f"frozen encoder weights moved: {moved_frozen[:5]} (frozen: {len(frozen)})")
+    still = [f"{n}.{t}" for n, m in bns.items()
+             for t, old in zip(("weight", "bias", "running_mean", "running_var"), bn_before[n])
+             if torch.equal(getattr(m, t), old)]
+    if still:
+        fail(f"BN tensors that did not move: {still[:8]} ({len(still)} in all)")
+    if not probe_after < probe_before:
+        fail(f"the fixed-rankings loss of a trained batch did not fall: "
+             f"{probe_before:.4f} -> {probe_after:.4f}")
+    ips = history["ips"]
+    record = {"steps": n_steps, "val_batches": epochs * n_val_batches, "launches": launches,
+              "history": history, "probe_loss": [probe_before, probe_after],
+              "frozen_tensors": len(frozen), "bn_modules": len(bns), "setup_s": setup_s,
+              "fit_s": fit_s, "peak_mem_gb": peak_gb,
+              "train_img_per_s_epochs": ips,
+              "train_img_per_s": float(np.median(ips[1:] if len(ips) > 1 else ips))}
+    return trainer, state, cfg, record
+
+
+def train_times(trainer, state, cfg, smi: str, device="cuda"):
+    """Phase 7: ms per step (rounds alternating the K1 loss with the plain
+    loss, CUDA events), the idle share of a profiled 3-step window, and the
+    top kernels by device time."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.train import Trainer
+
+    ds = SyntheticDepthDataset(cfg.batch_size, cfg.input_size, seed=2)
+    batch = {k: torch.from_numpy(np.stack([ds[i][k] for i in range(cfg.batch_size)])).to(device)
+             for k in ("image", "gt", "mask")}
+    plain = Trainer(cfg.replace(listmle_impl="xla"), trainer.steps_per_epoch, device=device)
+    box = [state]
+
+    def steps(tr, n):
+        for _ in range(n):
+            box[0], _m = tr.train_step(box[0], batch)
+
+    samples = {"k1": [], "plain": []}
+    for r in range(6):
+        for name in (("k1", "plain") if r % 2 == 0 else ("plain", "k1")):
+            tr = trainer if name == "k1" else plain
+            samples[name].append(cuda_ms(lambda: steps(tr, 1), reps=5, warmup=1))
+    step_ms = {k: float(np.median(v)) for k, v in samples.items()}
+    for k, v in samples.items():
+        log(f"train step ({k} loss): {step_ms[k]:.3f} ms per step of {cfg.batch_size} at "
+            f"{cfg.input_size}^2 (median of {len(v)} rounds of 5, min {min(v):.3f}, "
+            f"max {max(v):.3f}) [{smi}]")
+
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        steps(trainer, n_prof)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=20)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_prof) for e in events
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    busy_ms = sum(ms for _, ms in kernels)
+    idle = 1 - busy_ms / step_ms["k1"]
+    log(table)
+    log(f"profiled train step x{n_prof}: device busy {busy_ms:.3f} ms per step; unprofiled "
+        f"step {step_ms['k1']:.3f} ms -> idle share {idle:.3f} [{smi}]")
+    for name, ms in kernels[:10]:
+        log(f"  top kernel {ms:9.3f} ms/step  {name[:110]}")
+    return {"step_ms": step_ms, "step_ms_samples": samples, "profile_table": table,
+            "device_busy_ms": busy_ms, "idle_share": idle,
+            "top_kernels": [{"name": n, "ms_per_step": ms} for n, ms in kernels[:15]]}
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: the sum of its kernels' durations in
+    a profiler window of ``reps`` calls (host launch gaps excluded)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def k1_times(smi: str, n: int = BATCH_TRAIN * 100, k: int = 5, device="cuda"):
+    """K1 forward and backward at the main path's shape beside the plain
+    versions, the bound, and one PyTorch call (reverse logcumsumexp
+    forward; its autograd backward). ``ms`` is device time per call (the
+    profiler's kernel durations); ``call_ms`` the device-timeline time per
+    call with the host launching back to back (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    rng = np.random.default_rng(7)
+    s = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32)).to(device)
+    g = torch.full((n,), 1.0 / n, device=device)
+    _, lse = k1.listmle_fwd(s)
+    sl = s.clone().requires_grad_(True)
+    lib_nll = (torch.logcumsumexp(sl.flip(-1), dim=-1).flip(-1) - sl).sum(-1)
+    reps = 200
+    out = {}
+    (fb, fo), (bb, bo) = k1_cost(n, k)
+    for name, fns, (nb, no) in (
+        ("listmle_fwd", {"ms": lambda: k1.listmle_fwd(s),
+                         "plain_ms": lambda: k1.listmle_fwd_plain(s),
+                         "library_ms": lambda: torch.logcumsumexp(s.flip(-1), dim=-1)}, (fb, fo)),
+        ("listmle_bwd", {"ms": lambda: k1.listmle_bwd(s, lse, g),
+                         "plain_ms": lambda: k1.listmle_bwd_plain(s, lse, g),
+                         "library_ms": lambda: torch.autograd.grad(lib_nll, sl, g,
+                                                                   retain_graph=True)},
+         (bb, bo)),
+    ):
+        row = {key: device_ms(fn, reps) for key, fn in fns.items()}
+        row.update({key.replace("ms", "call_ms"): cuda_ms(fn, reps=reps, warmup=5)
+                    for key, fn in fns.items()})
+        row["bound_ms"], row["bound_by"] = bound_ms(nb, no, PEAK_FLOPS["float32"])
+        row.update(bytes=nb, ops=no)
+        out[name] = row
+        log(f"{name} N={n} K={k}: device {row['ms'] * 1e3:.2f} us per call, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}: {nb} B); per call with "
+            f"the host launching back to back: {row['call_ms'] * 1e3:.2f} / "
+            f"{row['plain_call_ms'] * 1e3:.2f} / {row['library_call_ms'] * 1e3:.2f} us [{smi}]")
+    return out
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -361,6 +647,20 @@ def main() -> int:
     record["profile"] = {"calls": n_prof, "device_busy_ms": busy_ms,
                          "profiled_wall_ms": wall_ms, "idle_share": idle}
 
+    # 5. K1 against its plain version ---------------------------------------------
+    record["k1_checks"], k1_fwd_err, k1_bwd_err = check_k1()
+
+    # 6. the training slice --------------------------------------------------------
+    trainer_t, state_t, cfg_t, rec_t = train_phase()
+    record["train"] = rec_t
+    log(f"train images/s through fit (host BatchIterator feed): "
+        f"{rec_t['train_img_per_s']:.1f} (per epoch {[round(x, 1) for x in rec_t['train_img_per_s_epochs']]}); "
+        f"peak device memory {rec_t['peak_mem_gb']:.2f} GB [{smi}]")
+
+    # 7. training times --------------------------------------------------------------
+    record["train_times"] = train_times(trainer_t, state_t, cfg_t, smi)
+    record["k1_times"] = k1t = k1_times(smi)
+
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",
         "source": "pldepth_torch/csrc/fused_mbconv.cu",
@@ -369,7 +669,14 @@ def main() -> int:
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
         "library_ms": None,
-    }]
+    }] + [{
+        "name": name, "route": "cuda", "source": "pldepth_torch/csrc/listmle.cu",
+        "replaces": replaces, "launches": rec_t["launches"][name], "max_abs_err": err,
+        **{key: k1t[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms")},
+    } for name, replaces, err in (
+        ("listmle_fwd", "pldepth_tpu/ops/listmle_pallas.py:111", k1_fwd_err),
+        ("listmle_bwd", "pldepth_tpu/ops/listmle_pallas.py:121", k1_bwd_err))]
     record["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

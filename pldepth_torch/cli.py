@@ -1,19 +1,28 @@
-"""Command line of the port: ``python -m pldepth_torch.cli predict ...``.
+"""Command line of the port: ``python -m pldepth_torch.cli train|predict ...``.
 
-The ``predict`` command of ``pldepth_tpu/cli.py`` with the same flag names,
-defaults and ``true``/``false`` booleans, written with argparse, plus
-``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
-kernels). The other commands come with later slices (ROADMAP.md queue 1).
+The ``train`` and ``predict`` commands of ``pldepth_tpu/cli.py`` with the
+same flag names, defaults and ``true``/``false`` booleans, written with
+argparse, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+versions of the kernels). ``train`` runs ``Trainer.fit`` and saves
+``weights.npz``; the post-train evaluation that follows in the JAX command
+comes with the eval slice (ROADMAP.md queue 1 item 8). Options the port
+does not run yet raise NotImplementedError naming their ROADMAP item. The
+other commands come with later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import glob as globmod
 import json
+import logging
 import os
 import sys
+import time
 from typing import List, Optional
+
+log = logging.getLogger(__name__)
 
 _TRUE = {"1", "true", "t", "yes", "y", "on"}
 _FALSE = {"0", "false", "f", "no", "n", "off"}
@@ -28,9 +37,69 @@ def _bool(s: str) -> bool:
     raise argparse.ArgumentTypeError(f"{s!r} is not a valid boolean")
 
 
+_MODELS = ["ff_redweb", "ff_effnet", "ff_effnet_b1", "ff_effnet_b2", "ff_effnet_b3",
+           "ff_effnet_b4", "ff_effnet_b5", "ff_effnet_b6", "ff_effnet_b7", "ff_smoke"]
+
+
+def _add_train_options(tr: argparse.ArgumentParser) -> None:
+    """The reference flag set (pldepth/PLDepth.py:28-46) and the JAX
+    package's extensions, names and defaults as in ``pldepth_tpu/cli.py``."""
+    a = tr.add_argument
+    a("--model_name", default="ff_effnet", choices=_MODELS)
+    a("--epochs", default=50, type=int)
+    a("--batch_size", default=4, type=int)
+    a("--seed", default=0, type=int)
+    a("--ranking_size", default=3, type=int)
+    a("--rankings_per_image", default=100, type=int)
+    a("--initial_lr", default=0.01, type=float)
+    a("--equality_threshold", default=0.03, type=float)
+    a("--model_checkpoints", default=False, type=_bool)
+    a("--load_model_path", default="")
+    a("--augmentation", default=True, type=_bool)
+    a("--warmup", default=0, type=int)
+    a("--sampling_type", default=1, type=int,
+      help="0=thresholded 1=info_score 2=masked 3=purely_masked 4=segment")
+    a("--lr_multi", default=0.25, type=float)
+    a("--ds_size", default=None, type=int)
+    a("--dataset", default="synthetic", help="HR-WSI | synthetic")
+    a("--data_root", default="")
+    a("--input_size", default=224, type=int)
+    a("--schedule", default="sgdr", choices=["sgdr", "step", "constant"])
+    a("--freeze_encoder", default=False, type=_bool)
+    a("--pretrained_path", default="")
+    a("--compute_dtype", default="bfloat16")
+    a("--sparse_tail", default=False, type=_bool)
+    a("--fused_tail", default=True, type=_bool)
+    a("--qres", default="", choices=["", "int8", "bf16"])
+    a("--qenc", default="", choices=["", "bf16", "int8"])
+    a("--decoder_head_ch", default=32, type=int)
+    a("--output_dir", default="runs")
+    a("--use_wandb", default=False, type=_bool)
+    a("--use_tensorboard", default=False, type=_bool)
+    a("--use_mlflow", default=False, type=_bool)
+    a("--mlflow_tracking_uri", default="")
+    a("--profile", default=False, type=_bool)
+    a("--pack_cache", default="")
+    a("--uint8_wire", default=False, type=_bool)
+    a("--data_resident", default=False, type=_bool)
+    a("--resident_chain_steps", default=1, type=int)
+    a("--parity_report", default=False, type=_bool)
+    a("--parity_target_whdr", default=-1.0, type=float)
+    a("--parity_budget", default=0.005, type=float)
+    a("--config_json", default="",
+      help="JSON file with config values: the file wins over defaults, flags over the file")
+    a("--mesh_model", default=1, type=int)
+    a("--spatial_sharding", default=False, type=_bool)
+    a("--run_name", default="", help="run directory under --output_dir (default: timestamped)")
+    a("--resume", default=False, type=_bool,
+      help="continue from the latest full-state checkpoint of --run_name")
+    a("--device", default="cuda", help="cuda (default) or cpu")
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pldepth_torch")
     sub = p.add_subparsers(dest="command", required=True)
+    _add_train_options(sub.add_parser("train", help="the main training experiment"))
     pr = sub.add_parser("predict", help="batched depth-map inference (serving path)")
     pr.add_argument("--model_name", default="ff_effnet")
     pr.add_argument("--load_model_path", required=True)
@@ -99,10 +168,133 @@ def predict(args: argparse.Namespace) -> dict:
     return {"n": len(files), "out_dir": args.out_dir}
 
 
+def _make_config(kw: dict):
+    """Config from flags (``pldepth_tpu/cli.py:_make_config``): a
+    ``--config_json`` value applies where the flag still holds the
+    ExperimentConfig default; flags win over the file."""
+    from pldepth_torch.core.config import ExperimentConfig
+
+    cfg_keys = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    values = {k: v for k, v in kw.items() if k in cfg_keys}
+    if kw.get("mesh_model", 1) != 1:
+        values["mesh"] = {"data": -1, "model": kw["mesh_model"]}
+    if kw.get("config_json"):
+        with open(kw["config_json"]) as f:
+            file_vals = {k: v for k, v in json.load(f).items() if not k.startswith("_")}
+        unknown = set(file_vals) - cfg_keys
+        if unknown:
+            raise SystemExit(f"unknown keys in {kw['config_json']}: {sorted(unknown)}")
+        defaults = ExperimentConfig()
+        for k, v in file_vals.items():
+            if values.get(k, getattr(defaults, k)) == getattr(defaults, k):
+                values[k] = v
+    return ExperimentConfig.from_dict(values)
+
+
+def _load_data(cfg):
+    from pldepth_torch.data.datasets import get_dataset
+    from pldepth_torch.data.pipeline import train_val_split
+
+    if cfg.dataset.lower() in ("hr-wsi", "hr_wsi", "hrwsi"):
+        ds = get_dataset("HR-WSI", root=cfg.data_root, split="train", size=cfg.ds_size,
+                         shuffle=True, seed=cfg.seed, target_size=cfg.input_size)
+    else:
+        ds = get_dataset(cfg.dataset, size=cfg.ds_size, seed=cfg.seed,
+                         target_size=cfg.input_size)
+    return train_val_split(ds, cfg.val_split_denom)
+
+
+def train(args: argparse.Namespace) -> dict:
+    """Main training experiment (reference perform_pldepth_experiment):
+    fit, then ``<run>/weights.npz``."""
+    from pldepth_torch.data.pipeline import BatchIterator, pregenerate_val_rankings, val_batches
+    from pldepth_torch.obs.logging import MetricLogger
+    from pldepth_torch.train.checkpoint import (
+        CheckpointManager,
+        load_weights_npz,
+        save_weights_npz,
+    )
+    from pldepth_torch.train.trainer import Trainer
+
+    cfg = _make_config(vars(args))
+    for name, on, item in (("--pack_cache", args.pack_cache, "item 7"),
+                           ("--parity_report", cfg.parity_report, "item 8"),
+                           ("--profile", cfg.profile, "item 12")):
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md queue 1 {item}")
+    if args.resume and not args.run_name:
+        raise SystemExit("--resume needs a fixed --run_name")
+    run_name = args.run_name or time.strftime("%d%m%y-%H%M%S") + f"_s{cfg.sampling_type}"
+    train_ds, val_ds = _load_data(cfg)
+    # the Trainer checks the training options before any file is written
+    trainer = Trainer(cfg, max(1, len(train_ds) // cfg.batch_size), device=args.device)
+    logger = MetricLogger(cfg.output_dir, run_name, cfg.to_dict(), cfg.use_wandb,
+                          cfg.use_tensorboard, cfg.use_mlflow)
+    state = trainer.init_state()
+    if cfg.load_model_path:
+        state = load_weights_npz(cfg.load_model_path, state)
+
+    # full-state checkpoints by global step (one per epoch + one on SIGTERM)
+    auto_ckpt = CheckpointManager(os.path.join(logger.dir, "autockpt"), keep=cfg.keep_checkpoints)
+    if args.resume and auto_ckpt.latest_step() is not None:
+        state = auto_ckpt.restore(state)
+        print(f"resumed from step {state.step}", flush=True)
+    train_iter = BatchIterator(train_ds, cfg.batch_size, seed=cfg.seed, start_step=state.step,
+                               prefetch=cfg.prefetch_depth)
+    vfac = None
+    if len(val_ds) >= cfg.batch_size:
+        # fixed val rankings from the thresholded sampler (hourglass_provider.py:22)
+        val_rankings = pregenerate_val_rankings(
+            val_ds, sampler_name="thresholded", rankings_per_image=cfg.val_rpi,
+            ranking_size=cfg.ranking_size, threshold=cfg.equality_threshold, seed=cfg.seed,
+            device=trainer.device)
+        vfac = lambda: val_batches(val_ds, val_rankings, cfg.batch_size)  # noqa: E731
+    ckpt = (CheckpointManager(os.path.join(logger.dir, "ckpt"), keep=cfg.keep_checkpoints)
+            if cfg.model_checkpoints else None)
+
+    class LogCB:
+        def on_train_begin(self, tr):
+            pass
+
+        def on_step_end(self, tr, step, metrics):
+            logger.log({f"step_{k}": v for k, v in metrics.items()}, step=step)
+
+        def on_epoch_end(self, tr, st, epoch, history):
+            logger.log({"loss": history["loss"][-1],
+                        "val_loss": history["val_loss"][-1] if history["val_loss"] else None,
+                        "lr": history["lr"][-1], "images_per_sec": history["ips"][-1]},
+                       step=epoch)
+            if ckpt is not None and history["val_loss"]:
+                ckpt.maybe_save_best(epoch, st, history["val_loss"][-1])
+
+        def on_train_end(self, tr, st, history):
+            pass
+
+    state, history = trainer.fit(state, train_iter, val_iter_factory=vfac,
+                                 callbacks=[LogCB()], ckpt=auto_ckpt)
+    train_iter.close()
+    out = {"run_dir": logger.dir, "step": state.step, "loss": history["loss"],
+           "val_loss": history["val_loss"]}
+    if history.get("preempted"):
+        print(f"preempted -- resume with: --run_name {run_name} --resume true", flush=True)
+        logger.close()
+        return {**out, "preempted": True}
+    weights_path = os.path.join(logger.dir, "weights.npz")
+    save_weights_npz(weights_path, state)
+    print(f"weights saved to {weights_path}", flush=True)
+    log.warning("post-train evaluation is not ported yet: ROADMAP.md queue 1 item 8")
+    logger.close()
+    return {**out, "weights": weights_path}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
+    logging.basicConfig(level=os.environ.get("PLDEPTH_LOG", "INFO"),
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     if args.command == "predict":
         print(json.dumps(predict(args)))
+    elif args.command == "train":
+        print(json.dumps(train(args)))
     return 0
 
 

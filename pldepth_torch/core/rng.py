@@ -20,9 +20,12 @@ def derive_seed(seed: int, tag: str, index: int = 0) -> int:
     return int.from_bytes(digest[:8], "little") & ((1 << 63) - 1)
 
 
-def generator(seed: int, tag: str, index: int = 0) -> torch.Generator:
-    """A CPU generator seeded from (seed, tag, index); weights are made on
-    the CPU so their values do not depend on the device."""
-    g = torch.Generator()
+def generator(seed: int, tag: str, index: int = 0, device="cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, tag, index). Weights are
+    made on the CPU so their values do not depend on the device; the train
+    step's draws (flip, sampling, drop-path) use generators on the card,
+    one per (seed, tag, step), so a resumed run draws what the
+    uninterrupted one drew."""
+    g = torch.Generator(device=device)
     g.manual_seed(derive_seed(seed, tag, index))
     return g

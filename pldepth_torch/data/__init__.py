@@ -1,1 +1,1 @@
-"""Host decode and batch preprocessing."""
+"""Host decode, datasets, the batch pipeline and batch preprocessing."""

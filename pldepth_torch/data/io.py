@@ -44,3 +44,12 @@ def resize_bilinear(arr: np.ndarray, size: Sequence[int]) -> np.ndarray:
     t = torch.from_numpy(np.ascontiguousarray(a[..., None] if squeeze else a))
     out = _resize_nhwc(t, size).numpy()
     return out[..., 0] if squeeze else out
+
+
+def resize_nearest(arr: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """(H, W) -> size, nearest neighbour at ``floor(i * src / dst)`` (cv2
+    ``INTER_NEAREST``'s index rule, which the JAX package uses)."""
+    h, w = int(size[0]), int(size[1])
+    idx0 = np.minimum((np.arange(h) * (arr.shape[0] / h)).astype(int), arr.shape[0] - 1)
+    idx1 = np.minimum((np.arange(w) * (arr.shape[1] / w)).astype(int), arr.shape[1] - 1)
+    return np.asarray(arr)[np.ix_(idx0, idx1)].astype(np.float32)

@@ -1,0 +1,133 @@
+"""Host batch pipeline (``pldepth_tpu/data/pipeline.py``): shuffle, batch,
+background prefetch; fixed validation rankings.
+
+The host only decodes and batches raw (image, gt, mask) arrays; flip and
+ranking sampling run in the train step on the device. The batch stream is
+the JAX package's: epoch ``e``'s permutation comes from
+``np.random.default_rng((seed, e))``, so the same dataset and seed give the
+same batches in both packages, and ``start_step=k`` resumes the stream at
+batch ``k``. Multi-host sharding and the uint8 wire format come with later
+slices (ROADMAP.md queue 1 items 11 and 7).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+from pldepth_torch.core.rng import generator
+from pldepth_torch.data.datasets import DepthDataset
+from pldepth_torch.sampling import sample_rankings_batch
+
+
+def train_val_split(ds: DepthDataset, denom: int = 15) -> Tuple[DepthDataset, DepthDataset]:
+    """Reference split: the first len(ds)//denom samples are validation
+    (pldepth/PLDepth.py:142-147)."""
+    n_val = len(ds) // denom
+    return ds.skip(n_val), ds.take(n_val)
+
+
+def _stack(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+class BatchIterator:
+    """Infinite shuffled batch iterator with a background prefetch thread;
+    drop_remainder semantics (fixed shapes only)."""
+
+    def __init__(self, ds: DepthDataset, batch_size: int, seed: int = 0, prefetch: int = 2,
+                 start_step: int = 0):
+        if len(ds) < batch_size:
+            raise ValueError(f"dataset of {len(ds)} samples cannot fill batch {batch_size}")
+        self.ds, self.batch_size, self.seed, self.start_step = ds, batch_size, seed, start_step
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
+        self._stopped = False
+        self._error = None
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._thread.start()
+
+    def _index_stream(self):
+        epoch, skip = 0, self.start_step
+        while True:
+            idx = np.arange(len(self.ds))
+            np.random.default_rng((self.seed, epoch)).shuffle(idx)
+            n_batches = len(idx) // self.batch_size
+            if skip >= n_batches:
+                skip -= n_batches
+            else:
+                for b in range(skip, n_batches):
+                    yield idx[b * self.batch_size:(b + 1) * self.batch_size]
+                skip = 0
+            epoch += 1
+
+    def _put(self, item) -> bool:
+        """Bounded put that keeps observing the stop flag."""
+        while not self._stopped:
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _producer(self):
+        try:
+            for batch_idx in self._index_stream():
+                if self._stopped or not self._put(_stack([self.ds[int(i)] for i in batch_idx])):
+                    return
+        except Exception as e:  # handed to the consumer, raised by __next__
+            self._put(e)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        if self._error is not None:
+            raise self._error
+        item = self._q.get()
+        if isinstance(item, Exception):
+            self._error = item
+            raise item
+        return item
+
+    def close(self):
+        self._stopped = True
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+
+
+def pregenerate_val_rankings(ds: DepthDataset, *, sampler_name: str, rankings_per_image: int,
+                             ranking_size: int, threshold: float = 0.03, seed: int = 0,
+                             chunk: int = 16, device="cpu") -> np.ndarray:
+    """(N, RPI, K, 2) fixed validation rankings, sampled on ``device`` in
+    chunks. The reference validates with the thresholded sampler whatever
+    the training strategy (hourglass_provider.py:22); callers pass
+    sampler_name="thresholded"."""
+    out = []
+    for start in range(0, len(ds), chunk):
+        items = [ds[i] for i in range(start, min(start + chunk, len(ds)))]
+        gts = torch.from_numpy(np.stack([s["gt"] for s in items])).to(device)
+        masks = torch.from_numpy(np.stack([s["mask"] for s in items])).to(device)
+        r = sample_rankings_batch(
+            generator(seed, "val", start, device), gts, masks,
+            sampler_name=sampler_name, rankings_per_image=rankings_per_image,
+            ranking_size=ranking_size, threshold=threshold)
+        out.append(r.cpu().numpy())
+    return np.concatenate(out, axis=0)
+
+
+def val_batches(ds: DepthDataset, rankings: np.ndarray,
+                batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Fixed-order validation batches carrying pre-generated rankings."""
+    for b in range(len(ds) // batch_size):
+        items = [ds[i] for i in range(b * batch_size, (b + 1) * batch_size)]
+        yield {"image": np.stack([s["image"] for s in items]),
+               "rankings": rankings[b * batch_size:(b + 1) * batch_size]}

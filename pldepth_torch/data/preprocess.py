@@ -1,6 +1,6 @@
-"""Batch normalisation of [0,1] NHWC images for a backbone
-(``pldepth_tpu/data/preprocess.py:normalize_images``). The flip
-augmentation comes with the training slice.
+"""Batch preprocessing on the device (``pldepth_tpu/data/preprocess.py``):
+normalisation of [0,1] NHWC images for a backbone, and the per-sample
+horizontal flip augmentation of the train step.
 """
 
 from __future__ import annotations
@@ -25,3 +25,24 @@ def normalize_images(images: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "none":
         return images
     raise ValueError(f"unknown normalization mode {mode!r}")
+
+
+def flip_batch(flip: torch.Tensor, images: torch.Tensor, gts: torch.Tensor,
+               masks: torch.Tensor):
+    """Mirror the width axis of the samples whose flag is set: images
+    (B, H, W, C), gts and masks (B, H, W)."""
+
+    def sel(x):
+        f = flip.reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(f, x.flip(2), x)
+
+    return sel(images), sel(gts), sel(masks)
+
+
+def random_flip_batch(gen: torch.Generator, images: torch.Tensor, gts: torch.Tensor,
+                      masks: torch.Tensor):
+    """Per-sample horizontal flip (reference augment_fn,
+    hourglass_provider.py:34-51): each sample flips with probability 0.5,
+    drawn from ``gen`` (the ``jax.random.bernoulli`` draw; other bits)."""
+    flip = torch.rand(images.shape[0], generator=gen, device=gen.device) < 0.5
+    return flip_batch(flip, images, gts, masks)

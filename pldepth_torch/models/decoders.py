@@ -8,12 +8,12 @@ sparse ``pixels`` tail and ``ReDWebDecoder`` come with later slices
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
-from pldepth_torch.models.layers import BatchNorm, Conv
+from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass
 from pldepth_torch.ops.fused_tail import fused_upsample2x_head
 from pldepth_torch.ops.resize import upsample2x_bilinear
 
@@ -34,21 +34,19 @@ class SkipConcatDecoder(nn.Module):
             self.add_module(f"bn{idx}", BatchNorm(co))
         self.head = Conv(head_ch, 1, 3, dtype=dtype)
 
-    def _conv_bn_relu(self, x: torch.Tensor, idx: int) -> torch.Tensor:
+    def _conv_bn_relu(self, x: torch.Tensor, idx: int,
+                      train: Optional[TrainPass]) -> torch.Tensor:
         x = getattr(self, f"conv{idx}")(x)
-        return torch.relu(getattr(self, f"bn{idx}")(x).to(self.dtype))
+        return torch.relu(getattr(self, f"bn{idx}")(x, train).to(self.dtype))
 
     def forward(self, top: torch.Tensor, taps: Dict[str, torch.Tensor],
-                train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(
-                "the training forward is not ported yet: ROADMAP.md queue 1 item 6")
+                train: Optional[TrainPass] = None) -> torch.Tensor:
         x = top
         for idx, tap in enumerate(("expand_6", "expand_4", "expand_3")):
-            x = upsample2x_bilinear(self._conv_bn_relu(x, idx))
+            x = upsample2x_bilinear(self._conv_bn_relu(x, idx, train))
             x = torch.cat([x, taps[tap].to(x.dtype)], dim=-1)
-        x = upsample2x_bilinear(self._conv_bn_relu(x, 3))  # -> 1/2
-        x = self._conv_bn_relu(x.contiguous(), 4)
+        x = upsample2x_bilinear(self._conv_bn_relu(x, 3, train))  # -> 1/2
+        x = self._conv_bn_relu(x.contiguous(), 4, train)
         if self.fused_tail:
             return fused_upsample2x_head(x, self.head.weight, self.head.bias).to(torch.float32)
         return self.head(upsample2x_bilinear(x).contiguous()).to(torch.float32)

@@ -4,19 +4,21 @@ Port of ``pldepth_tpu/models/efficientnet.py``: NHWC tensors, f32 params
 cast to the compute dtype at use, f32 batch-norm with eps 1e-3. Submodule
 names are the flax ones (``stem_conv``, ``stage2_block0.dw_conv``,
 ``se.reduce`` ...), so models/pretrained.py maps weights by name alone.
-Inference only (running-statistics BN, no drop-path): the training forward
-comes with the training slice (ROADMAP.md queue 1 item 6).
+A forward given a ``TrainPass`` (models/layers.py) runs in train mode:
+batch-statistics BN, and drop-path on the residual blocks at rate
+``drop_connect_rate * block_idx / total_blocks`` with draws from the pass's
+generator.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from pldepth_torch.models.layers import BatchNorm, Conv, swish
+from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass, swish
 
 # (expand_ratio, channels, repeats, stride, kernel) for B0, per stage 1..7.
 _STAGE_DEFS = (
@@ -58,13 +60,6 @@ def round_repeats(repeats: int, depth: float) -> int:
     return int(math.ceil(depth * repeats))
 
 
-def _no_train(train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "the training forward (batch statistics, drop-path) is not ported "
-            "yet: ROADMAP.md queue 1 item 6")
-
-
 class SqueezeExcite(nn.Module):
     def __init__(self, ch: int, reduce_ch: int, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -84,11 +79,12 @@ class MBConv(nn.Module):
     """Mobile inverted bottleneck with SE; returns (out, expand_act)."""
 
     def __init__(self, in_ch: int, out_ch: int, expand: int, kernel: int,
-                 stride: int, se_ratio: float = 0.25,
+                 stride: int, se_ratio: float = 0.25, drop_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.in_ch, self.out_ch, self.expand = in_ch, out_ch, expand
         self.kernel, self.stride = kernel, stride
+        self.drop_rate = drop_rate
         self.dtype = dtype
         ce = in_ch * expand
         if expand != 1:
@@ -105,18 +101,23 @@ class MBConv(nn.Module):
     def residual(self) -> bool:
         return self.stride == 1 and self.in_ch == self.out_ch
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        _no_train(train)
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None):
         dt = self.dtype
         inputs = x
         expand_act = None
         if self.expand != 1:
-            x = swish(self.expand_bn(self.expand_conv(x)).to(dt))
+            x = swish(self.expand_bn(self.expand_conv(x), train).to(dt))
             expand_act = x  # "blockXa_expand_activation" tap point
-        x = swish(self.dw_bn(self.dw_conv(x)).to(dt))
+        x = swish(self.dw_bn(self.dw_conv(x), train).to(dt))
         x = self.se(x)
-        x = self.project_bn(self.project_conv(x)).to(dt)
+        x = self.project_bn(self.project_conv(x), train).to(dt)
         if self.residual:
+            if train is not None and self.drop_rate > 0:
+                # drop-path: one Bernoulli(keep) draw per sample
+                keep = 1.0 - self.drop_rate
+                draw = torch.rand(x.shape[0], generator=train.gen, device=x.device)
+                mask = (draw < keep).reshape(-1, 1, 1, 1)
+                x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
             x = x + inputs
         return x, expand_act
 
@@ -125,10 +126,12 @@ class EfficientNetEncoder(nn.Module):
     """Returns ``(top, taps)``: the 1/32 top activation and decoder taps
     {"expand_3": 1/4 res, "expand_4": 1/8, "expand_6": 1/16}."""
 
-    def __init__(self, variant: str = "b0", dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, variant: str = "b0", dtype: torch.dtype = torch.bfloat16,
+                 drop_connect_rate: float = 0.2):
         super().__init__()
         self.variant, self.dtype = variant, dtype
         width, depth = VARIANTS[variant]
+        total_blocks = sum(round_repeats(r, depth) for (_, _, r, _, _) in _STAGE_DEFS)
         stem_ch = round_filters(32, width)
         self.stem_conv = Conv(3, stem_ch, 3, stride=2, bias=False, dtype=dtype)
         self.stem_bn = BatchNorm(stem_ch)
@@ -143,6 +146,7 @@ class EfficientNetEncoder(nn.Module):
                 name = f"stage{stage_num}_block{i}"
                 self.add_module(name, MBConv(
                     in_ch, out_ch, expand, kernel, stride if i == 0 else 1,
+                    drop_rate=drop_connect_rate * len(self.block_names) / total_blocks,
                     dtype=dtype,
                 ))
                 self.block_names.append(name)
@@ -153,15 +157,14 @@ class EfficientNetEncoder(nn.Module):
         self.top_conv = Conv(in_ch, self.top_ch, 1, bias=False, dtype=dtype)
         self.top_bn = BatchNorm(self.top_ch)
 
-    def forward(self, x: torch.Tensor, train: bool = False):
-        _no_train(train)
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None):
         dt = self.dtype
-        x = swish(self.stem_bn(self.stem_conv(x.to(dt))).to(dt))
+        x = swish(self.stem_bn(self.stem_conv(x.to(dt)), train).to(dt))
         taps: Dict[str, torch.Tensor] = {}
         for name in self.block_names:
-            x, expand_act = getattr(self, name)(x)
+            x, expand_act = getattr(self, name)(x, train)
             stage, i = name[len("stage"):].split("_block")
             if i == "0" and int(stage) in DECODER_TAP_STAGES:
                 taps[f"expand_{stage}"] = expand_act
-        x = swish(self.top_bn(self.top_conv(x)).to(dt))
+        x = swish(self.top_bn(self.top_conv(x), train).to(dt))
         return x, taps

@@ -6,12 +6,19 @@ in the compute dtype. ``BatchNorm`` is flax ``BatchNorm(dtype=float32,
 epsilon=1e-3)`` with running statistics: ``(x - mean) * (rsqrt(var + eps) *
 scale) + bias`` in f32. Parameters stay f32; weights are OIHW, the layout
 ``F.conv2d`` takes (models/pretrained.py maps them to and from flax HWIO).
+
+A module runs in train mode when its forward is given a :class:`TrainPass`:
+batch-norm then normalises with batch statistics and puts its new running
+statistics into the pass instead of changing its buffers (flax's
+``mutable=["batch_stats"]``), so the trainer can commit them or keep the
+old ones (the finite guard, train/trainer.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -54,12 +61,28 @@ class Conv(nn.Module):
         return y
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm (running statistics); returns f32."""
+@dataclasses.dataclass
+class TrainPass:
+    """One train-mode forward: the generator of its drop-path draws (on the
+    activations' device) and the new BN running statistics it makes,
+    {BatchNorm module: (mean, var)}."""
 
-    def __init__(self, ch: int, eps: float = 1e-3):
+    gen: Optional[torch.Generator] = None
+    new_stats: Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default_factory=dict)
+
+
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm(momentum=0.99, epsilon=1e-3, dtype=float32,
+    use_fast_variance=False)``; returns f32. Inference uses the running
+    statistics. Train mode uses the batch's mean and two-pass biased
+    variance over (B, H, W), computed in f32, and puts
+    ``momentum * running + (1 - momentum) * batch`` into ``train.new_stats``
+    (the buffers are left as they are)."""
+
+    def __init__(self, ch: int, eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -72,9 +95,20 @@ class BatchNorm(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x.to(torch.float32) - self.running_mean
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
+        x = x.to(torch.float32)
+        if train is None:
+            y, var = x - self.running_mean, self.running_var
+        else:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            y = x - mean
+            var = torch.square(y).mean(dim=dims)
+            with torch.no_grad():
+                m = self.momentum
+                train.new_stats[self] = (m * self.running_mean + (1 - m) * mean,
+                                         m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
         return y * mul + self.bias
 
     def folded(self):

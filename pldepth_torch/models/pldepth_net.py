@@ -4,13 +4,15 @@ family, EfficientNet encoder + skip-concat decoder, NHWC in and out.
 A :class:`PLDepthModel` names a model and knows how to build a fresh
 ``nn.Module`` for it; ``init_module`` initialises one from a
 ``torch.Generator`` on a device. The weights live in the module, which the
-trainer's state holds.
+trainer's state holds. :func:`partition_params` labels parameters for the
+BN-only-trainable encoder.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+import re
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 from torch import nn
@@ -18,7 +20,7 @@ from torch import nn
 from pldepth_torch.core.device import torch_dtype
 from pldepth_torch.models.decoders import SkipConcatDecoder
 from pldepth_torch.models.efficientnet import VARIANTS, EfficientNetEncoder
-from pldepth_torch.models.layers import reset_parameters
+from pldepth_torch.models.layers import TrainPass, reset_parameters
 
 
 class EffNetFullyFledged(nn.Module):
@@ -26,17 +28,19 @@ class EffNetFullyFledged(nn.Module):
     (descending depth order, as the HR-WSI convention of the reference)."""
 
     def __init__(self, variant: str = "b0", dtype: torch.dtype = torch.bfloat16,
-                 fused_tail: bool = True, head_ch: int = 32):
+                 fused_tail: bool = True, head_ch: int = 32,
+                 drop_connect_rate: float = 0.2):
         super().__init__()
         self.variant, self.dtype = variant, dtype
         self.fused_tail, self.head_ch = fused_tail, head_ch
-        self.encoder = EfficientNetEncoder(variant, dtype=dtype)
+        self.encoder = EfficientNetEncoder(variant, dtype=dtype,
+                                           drop_connect_rate=drop_connect_rate)
         self.decoder = SkipConcatDecoder(
             self.encoder.top_ch, self.encoder.tap_channels, head_ch=head_ch,
             dtype=dtype, fused_tail=fused_tail,
         )
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
         top, taps = self.encoder(x, train)
         return self.decoder(top, taps, train)
 
@@ -56,16 +60,19 @@ class PLDepthModel:
 
 
 def _effnet(name: str, variant: str):
-    def factory(dtype=torch.bfloat16, fused_tail=True, head_ch=32) -> PLDepthModel:
+    def factory(dtype=torch.bfloat16, fused_tail=True, head_ch=32,
+                drop_connect_rate=0.2) -> PLDepthModel:
         return PLDepthModel(
             name,
-            lambda: EffNetFullyFledged(variant, dtype, fused_tail, head_ch),
+            lambda: EffNetFullyFledged(variant, dtype, fused_tail, head_ch,
+                                       drop_connect_rate),
             "effnet",
         )
     return factory
 
 
-def _redweb(dtype=torch.bfloat16, fused_tail=True, head_ch=32) -> PLDepthModel:
+def _redweb(dtype=torch.bfloat16, fused_tail=True, head_ch=32,
+            drop_connect_rate=0.2) -> PLDepthModel:
     raise NotImplementedError(
         "ff_redweb (ResNet-50 + ReDWeb decoder) is not ported yet: "
         "ROADMAP.md queue 1 item 9")
@@ -90,8 +97,47 @@ def get_model_type_by_name(model_name: str) -> str:
 
 
 def get_pl_depth_net(model_name: str, compute_dtype: str = "bfloat16",
-                     fused_tail: bool = True, head_ch: int = 32) -> PLDepthModel:
+                     fused_tail: bool = True, head_ch: int = 32,
+                     drop_connect_rate: float = 0.2) -> PLDepthModel:
     get_model_type_by_name(model_name)
     return MODEL_REGISTRY[model_name](
         dtype=torch_dtype(compute_dtype), fused_tail=fused_tail, head_ch=head_ch,
+        drop_connect_rate=drop_connect_rate,
     )
+
+
+_BN_NAME = re.compile(r"(^|_)bn\d*$|_bn(_|\d|$)")
+
+
+def partition_params(names: Iterable[str], freeze_encoder: bool = True) -> Dict[str, str]:
+    """Label each flax parameter path (``params/encoder/stem_conv/kernel``,
+    the weight bridge's names) "trainable" or "frozen".
+
+    Frozen = encoder params that are not batch-norm affine, the reference's
+    BN-only-trainable encoder (pl_hourglass.py:53-57); the rule of
+    ``pldepth_tpu/models/pldepth_net.py:partition_params`` on the same
+    path components. BN running statistics always update."""
+
+    def label(path: str) -> str:
+        keys = path.split("/")
+        keys = keys[1:] if keys[0] == "params" else keys
+        in_encoder = "encoder" in keys
+        is_bn = any(k == "bn" or _BN_NAME.search(k) for k in keys)
+        return "frozen" if freeze_encoder and in_encoder and not is_bn else "trainable"
+
+    return {n: label(n) for n in names}
+
+
+def freeze_params(module: nn.Module, freeze_encoder: bool = True) -> Dict[str, str]:
+    """Set ``requires_grad`` of each parameter of ``module`` from
+    :func:`partition_params` (frozen leaves get no gradient and no update:
+    the JAX package's stop_gradient plus ``set_to_zero``). Returns the
+    labels by state_dict name."""
+    from pldepth_torch.models.pretrained import flax_key
+
+    labels = {}
+    for name, p in module.named_parameters():
+        key = flax_key(name, p.dim())
+        labels[name] = partition_params([key], freeze_encoder)[key]
+        p.requires_grad_(labels[name] == "trainable")
+    return labels

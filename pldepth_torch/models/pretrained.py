@@ -62,22 +62,30 @@ def state_dict_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
     return dict(flax_entry_to_torch(k, v) for k, v in flat.items())
 
 
-def flax_key_and_array(name: str, t: torch.Tensor) -> Tuple[str, np.ndarray]:
-    """One port ``state_dict`` entry -> (flax key, array in flax layout)."""
+def flax_key(name: str, ndim: int) -> str:
+    """A port ``state_dict`` name (of a tensor with ``ndim`` dims) -> its
+    flax path."""
     path, leaf = name.rsplit(".", 1)
     path = path.replace(".", "/")
-    arr = t.detach().to("cpu", torch.float32).numpy()
     if leaf == "running_mean":
-        return f"batch_stats/{path}/mean", arr
+        return f"batch_stats/{path}/mean"
     if leaf == "running_var":
-        return f"batch_stats/{path}/var", arr
+        return f"batch_stats/{path}/var"
     if leaf == "bias":
-        return f"params/{path}/bias", arr
+        return f"params/{path}/bias"
     if leaf == "weight":
-        if arr.ndim == 4:
-            return f"params/{path}/kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
-        return f"params/{path}/scale", arr  # BatchNorm gamma
+        # a 4-D weight is a conv kernel, any other a BatchNorm gamma
+        return f"params/{path}/kernel" if ndim == 4 else f"params/{path}/scale"
     raise KeyError(f"no flax counterpart for state_dict entry {name!r}")
+
+
+def flax_key_and_array(name: str, t: torch.Tensor) -> Tuple[str, np.ndarray]:
+    """One port ``state_dict`` entry -> (flax key, array in flax layout)."""
+    key = flax_key(name, t.dim())
+    arr = t.detach().to("cpu", torch.float32).numpy()
+    if key.endswith("/kernel"):
+        arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))  # OIHW -> HWIO
+    return key, arr
 
 
 def flax_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -1,0 +1,75 @@
+"""Run logging (``pldepth_tpu/obs/logging.py``): JSONL and CSV under
+``<output_dir>/<run_name>/``, plus ``config.json``.
+wandb, TensorBoard and mlflow come with a later slice (ROADMAP.md queue 1
+item 12) and raise NotImplementedError when asked for.
+"""
+
+from __future__ import annotations
+
+import csv
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+
+class MetricLogger:
+    def __init__(self, output_dir: str, run_name: str = "run",
+                 config: Optional[Dict[str, Any]] = None, use_wandb: bool = False,
+                 use_tensorboard: bool = False, use_mlflow: bool = False):
+        for flag, name in ((use_wandb, "wandb"), (use_tensorboard, "tensorboard"),
+                           (use_mlflow, "mlflow")):
+            if flag:
+                raise NotImplementedError(
+                    f"{name} logging is not ported yet: ROADMAP.md queue 1 item 12")
+        self.dir = os.path.join(output_dir, run_name)
+        os.makedirs(self.dir, exist_ok=True)
+        self._jsonl = open(os.path.join(self.dir, "metrics.jsonl"), "a")
+        self._csv_path = os.path.join(self.dir, "metrics.csv")
+        self._csv_fields: Optional[list] = None
+        self._csv_file = None
+        if config:
+            with open(os.path.join(self.dir, "config.json"), "w") as f:
+                json.dump(config, f, indent=2, default=str)
+
+    def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
+        rec = {"_time": time.time(), **({"step": step} if step is not None else {}), **metrics}
+        self._jsonl.write(json.dumps(rec, default=float) + "\n")
+        self._jsonl.flush()
+        self._write_csv(rec)
+
+    def _write_csv(self, rec: Dict[str, Any]):
+        """A CSV row under a header that grows: new keys rewrite the file
+        with the union header, keeping earlier rows (an existing file's
+        header is adopted first, for --resume)."""
+        if self._csv_fields is None and os.path.exists(self._csv_path):
+            with open(self._csv_path, newline="") as f:
+                first = f.readline().strip()
+            self._csv_fields = first.split(",") if first else None
+        fields = self._csv_fields or []
+        new_keys = [k for k in rec if k not in fields]
+        if new_keys:
+            fields = fields + new_keys
+            rows = []
+            if self._csv_file is not None:
+                self._csv_file.close()
+            if os.path.exists(self._csv_path):
+                with open(self._csv_path, newline="") as f:
+                    rows = list(csv.DictReader(f))
+            self._csv_file = open(self._csv_path, "w", newline="")
+            self._csv = csv.DictWriter(self._csv_file, fieldnames=fields, extrasaction="ignore")
+            self._csv.writeheader()
+            for r in rows:
+                self._csv.writerow(r)
+            self._csv_fields = fields
+        if self._csv_file is None:  # header already on disk (resume)
+            self._csv_file = open(self._csv_path, "a", newline="")
+            self._csv = csv.DictWriter(self._csv_file, fieldnames=self._csv_fields,
+                                       extrasaction="ignore")
+        self._csv.writerow({k: rec.get(k) for k in self._csv_fields})
+        self._csv_file.flush()
+
+    def close(self):
+        self._jsonl.close()
+        if self._csv_file:
+            self._csv_file.close()

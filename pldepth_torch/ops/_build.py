@@ -34,6 +34,10 @@ SIGNATURES = {
         "fused_mbconv_tiles": (_I, [_I, _I, _I]),
         "fused_mbconv_infer": (_I, [_I] + [_P] * 18 + [_I] * 15 + [_P]),
     },
+    "listmle": {
+        "listmle_fwd": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+        "listmle_bwd": (_I, [_P] * 4 + [_I] * 2 + [_P]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,29 +1,52 @@
-"""The Trainer's serving subset (``pldepth_tpu/train/trainer.py``):
-state init, ``predict``, ``predict_fused``, the serving-mode policy and
-``jit_predict``.
+"""The Trainer (``pldepth_tpu/train/trainer.py``): state init, the train
+step, ``fit``, the eval step, and serving (``predict``, ``predict_fused``,
+the serving-mode policy, ``jit_predict``).
 
-The JAX state is an immutable pytree of params and batch stats; here the
-weights live in an ``nn.Module`` that the state holds, and functions that
-change weights return a new state (train/checkpoint.py). One device only.
-The train step, ``fit`` and multi-device serving come with later slices
-(ROADMAP.md queue 1).
+One train step does, in order, what the JAX step does: images to f32, the
+step's generators keyed by (seed, step), the flip augmentation, on-device
+ranking sampling, normalisation, the train-mode forward (batch-statistics
+BN, drop-path), the ListMLE loss through K1 (forward and backward kernels
+on the card), backward, the AMSGrad update (train/optim.py) and the finite
+guard: if the loss or any gradient is not finite, params, BN running
+statistics and optimizer state keep their values, and ``step`` still
+advances. The guard's flag stays on the device: every commit is a
+``torch.where`` on it, so a step needs no host sync.
+
+The JAX state is an immutable pytree; here the weights live in an
+``nn.Module`` that the state holds, and the train step updates that module
+and its optimizer state in place (no copy of the weights per step) and
+returns a state whose ``step`` has advanced. One device only; multi-GPU
+data parallelism is ROADMAP.md queue 1 item 11.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
-from typing import Callable, Dict, Optional, Tuple
+import signal
+import threading
+import time
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from pldepth_torch.core.config import ExperimentConfig
+from pldepth_torch.core.config import ExperimentConfig, sampler_name_for_type
 from pldepth_torch.core.device import DeviceLike, resolve_device
 from pldepth_torch.core.rng import generator
-from pldepth_torch.data.preprocess import normalize_images
-from pldepth_torch.models.pldepth_net import EffNetFullyFledged, get_pl_depth_net
+from pldepth_torch.data.preprocess import normalize_images, random_flip_batch
+from pldepth_torch.models.layers import TrainPass
+from pldepth_torch.models.pldepth_net import (
+    EffNetFullyFledged,
+    freeze_params,
+    get_pl_depth_net,
+)
+from pldepth_torch.ops.listmle import pl_ranking_loss
+from pldepth_torch.sampling import sample_rankings_batch
+from pldepth_torch.train.optim import AmsGrad, AmsGradState
+from pldepth_torch.train.schedules import build_schedule
 
 log = logging.getLogger(__name__)
 
@@ -32,14 +55,54 @@ _NOT_PORTED_SERVING = (
     "(bn_fold and int8 serving); serve with --fused_encoder true or "
     "--bn_fold false --quantize ''")
 
+# training options of the JAX package that later slices port
+_NOT_PORTED_OPTIONS = (
+    ("qres", "item 11"), ("qenc", "item 11"), ("sparse_tail", "item 11"),
+    ("remat_encoder", "item 11"), ("spatial_sharding", "item 11"),
+    ("data_resident", "item 7"), ("uint8_wire", "item 7"),
+)
+
+
+def check_ported_options(cfg: ExperimentConfig) -> None:
+    """Raise NotImplementedError naming the ROADMAP item of any training
+    option the port does not run yet."""
+    for name, item in _NOT_PORTED_OPTIONS:
+        if getattr(cfg, name):
+            raise NotImplementedError(
+                f"{name}={getattr(cfg, name)!r} is not ported yet: ROADMAP.md queue 1 {item}")
+    if cfg.grad_accum > 1:
+        raise NotImplementedError(
+            "grad_accum > 1 is not ported yet: ROADMAP.md queue 1 item 11")
+    if cfg.mesh.model != 1:
+        raise NotImplementedError(
+            "a mesh model axis (spatial sharding) is not ported yet: ROADMAP.md queue 1 item 11")
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainState:
+    """``step`` counts train steps, accepted or not; ``opt`` is the
+    optimizer state of the model's trainable parameters (in module order);
+    ``seed`` keys the per-step generators."""
+
     step: int
     model: nn.Module
+    opt: Optional[AmsGradState] = None
+    seed: int = 0
 
     def replace(self, **kwargs) -> "TrainState":
         return dataclasses.replace(self, **kwargs)
+
+
+@dataclasses.dataclass
+class StepMetrics:
+    loss: torch.Tensor  # () f32
+    lr: torch.Tensor  # () f32, schedule(step)
+    finite: torch.Tensor  # () bool: loss and grads all finite
+    done: Optional[torch.cuda.Event] = None  # recorded after the step (card only)
+
+
+def trainable_params(module: nn.Module) -> List[nn.Parameter]:
+    return [p for p in module.parameters() if p.requires_grad]
 
 
 class _HostResult:
@@ -65,26 +128,117 @@ class Trainer:
         self.cfg = cfg
         self.steps_per_epoch = max(1, steps_per_epoch)
         self.device = resolve_device(device)
+        check_ported_options(cfg)
         self.model = get_pl_depth_net(
             cfg.model_name, cfg.compute_dtype, fused_tail=cfg.fused_tail,
             head_ch=cfg.decoder_head_ch,
         )
+        self.sampler_name = sampler_name_for_type(cfg.sampling_type)
+        self.schedule = build_schedule(cfg, self.steps_per_epoch)
+        self.optimizer = AmsGrad(self.schedule, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps)
         self._jit_predict: Dict[object, Callable] = {}
         # (module, input hw) -> encoder plan; the module is kept to check
         # identity, since a plan holds that module's folded weights
         self._plans: Dict[Tuple[int, Tuple[int, int]], Tuple[nn.Module, list]] = {}
+        self._stop_requested = False
 
     # ------------------------------------------------------------------
     def init_state(self, gen: Optional[torch.Generator] = None) -> TrainState:
         """Seeded random weights (``cfg.seed``), or ``cfg.pretrained_path``
-        overlaid on them."""
+        overlaid on them; frozen leaves (``cfg.freeze_encoder``) get
+        ``requires_grad=False``; a fresh optimizer state."""
         gen = gen if gen is not None else generator(self.cfg.seed, "init")
         module = self.model.init_module(gen, self.device)
         if self.cfg.pretrained_path:
             from pldepth_torch.models import pretrained
 
             pretrained.load_backbone(self.cfg.pretrained_path, module)
-        return TrainState(step=0, model=module)
+        freeze_params(module, self.cfg.freeze_encoder)
+        return TrainState(step=0, model=module,
+                          opt=self.optimizer.init(trainable_params(module)),
+                          seed=self.cfg.seed)
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """Host (numpy) or device batch -> f32 tensors on the device; uint8
+        images are rescaled to [0, 1]."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v).to(self.device, non_blocking=True)
+            if k == "image" and t.dtype == torch.uint8:
+                t = t.to(torch.float32) / 255.0
+            out[k] = t.to(torch.float32)
+        return out
+
+    def _gen(self, state: TrainState, tag: str) -> torch.Generator:
+        return generator(state.seed, f"train/{tag}", state.step, self.device)
+
+    @torch.no_grad()
+    def _rankings(self, state: TrainState, b: Dict[str, torch.Tensor]):
+        """Flip augmentation + on-device ranking sampling of one batch."""
+        cfg = self.cfg
+        images, gts, masks = b["image"], b["gt"], b["mask"]
+        if cfg.augmentation:
+            images, gts, masks = random_flip_batch(self._gen(state, "flip"), images, gts, masks)
+        rankings = sample_rankings_batch(
+            self._gen(state, "sample"), gts, masks,
+            sampler_name=self.sampler_name,
+            rankings_per_image=cfg.rankings_per_image,
+            ranking_size=cfg.ranking_size,
+            threshold=cfg.equality_threshold,
+            oversample_factor=(float(cfg.oversample_factor)
+                               if cfg.oversample_factor is not None else None),
+            draw_method=cfg.sampler_draw_method,
+        )
+        return images, rankings
+
+    def _step(self, state: TrainState, images: torch.Tensor,
+              rankings: torch.Tensor) -> Tuple[TrainState, StepMetrics]:
+        module = state.model
+        params = trainable_params(module)
+        self._plans.clear()  # the weights change in place: no plan survives
+        x = normalize_images(images, self.model.preprocess)
+        train = TrainPass(gen=self._gen(state, "droppath"))
+        for p in params:
+            p.grad = None
+        pred = module(x, train)
+        loss = pl_ranking_loss(pred, rankings, impl=self.cfg.listmle_impl)
+        loss.backward()
+        loss = loss.detach()
+        with torch.no_grad():
+            finite = self.optimizer.step(params, state.opt, torch.isfinite(loss))
+            for bn, new in train.new_stats.items():
+                for buf, v in zip((bn.running_mean, bn.running_var), new):
+                    buf.copy_(torch.where(finite, v, buf))
+        for p in params:
+            p.grad = None
+        metrics = StepMetrics(loss=loss, lr=self.schedule(state.step), finite=finite)
+        if self.device.type == "cuda":
+            metrics.done = torch.cuda.Event()
+            metrics.done.record()
+        return state.replace(step=state.step + 1), metrics
+
+    def train_step(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
+        """One step on an {"image", "gt", "mask"} batch: rankings are
+        sampled on the device."""
+        images, rankings = self._rankings(state, self._to_device(batch))
+        return self._step(state, images, rankings)
+
+    def train_step_fixed(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
+        """One step on an {"image", "rankings"} batch (precomputed
+        rankings, the active-learning path)."""
+        b = self._to_device(batch)
+        return self._step(state, b["image"], b["rankings"])
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch) -> torch.Tensor:
+        """Loss of the inference forward (running statistics) on an
+        {"image", "rankings"} batch: K1 forward only."""
+        b = self._to_device(batch)
+        pred = state.model(normalize_images(b["image"], self.model.preprocess))
+        return pl_ranking_loss(pred, b["rankings"], impl=self.cfg.listmle_impl)
 
     def _images(self, images) -> torch.Tensor:
         x = torch.as_tensor(images, dtype=torch.float32)
@@ -164,6 +318,124 @@ class Trainer:
 
         self._jit_predict[fused] = serve
         return serve
+
+    # ------------------------------------------------------------------
+    # loops
+    # ------------------------------------------------------------------
+    def request_stop(self) -> None:
+        """Ask fit() to stop at the next step boundary (checkpoint first if a
+        ``ckpt`` manager was given). Called by the SIGTERM handler; safe to
+        call from callbacks or other threads."""
+        self._stop_requested = True
+
+    @contextlib.contextmanager
+    def _preemption_guard(self):
+        """Route SIGTERM to request_stop() for the duration of fit()."""
+        if threading.current_thread() is not threading.main_thread():
+            yield
+            return
+
+        def handler(signum, frame):
+            log.warning("SIGTERM received -- stopping at next step boundary")
+            self.request_stop()
+
+        prev = signal.signal(signal.SIGTERM, handler)
+        try:
+            yield
+        finally:
+            signal.signal(signal.SIGTERM, prev)
+
+    def fit(self, state: TrainState, train_iter: Iterator[Dict[str, np.ndarray]],
+            epochs: Optional[int] = None,
+            val_iter_factory: Optional[Callable[[], Iterator[Dict[str, np.ndarray]]]] = None,
+            callbacks=(), ckpt=None) -> Tuple[TrainState, Dict[str, list]]:
+        """Run the train loop (``pldepth_tpu`` ``Trainer.fit`` without the
+        resident-data path).
+
+        ``ckpt``: optional CheckpointManager for full-state saves labelled by
+        global step, one per ``checkpoint_every_epochs`` epochs (and after
+        the last) plus one on request_stop()/SIGTERM. Resume is driven by
+        ``state.step``: the caller builds ``train_iter`` with
+        ``start_step=state.step``, so the data stream, the per-step
+        generators and the LR schedule line up with the uninterrupted run.
+        The next host batch is fetched while the step runs on the card; at
+        most two steps are in flight (the loop waits for step n-1 after
+        queueing step n)."""
+        epochs = epochs if epochs is not None else self.cfg.epochs
+        history: Dict[str, list] = {"loss": [], "val_loss": [], "lr": [], "ips": []}
+        start_step = state.step
+        start_epoch = start_step // self.steps_per_epoch
+        offset = start_step % self.steps_per_epoch
+        if start_step:
+            log.info("resuming at step %d (epoch %d + %d steps)", start_step, start_epoch, offset)
+        preempted = False
+        for cb in callbacks:
+            cb.on_train_begin(self)
+        with self._preemption_guard():
+            next_batch = next(train_iter)
+            for epoch in range(start_epoch, epochs):
+                t0 = time.time()
+                metrics_all: List[StepMetrics] = []
+                first = offset if epoch == start_epoch else 0
+                for step_i in range(first, self.steps_per_epoch):
+                    state, metrics = self.train_step(state, next_batch)
+                    # overlap the next host fetch with the step on the card
+                    next_batch = next(train_iter)
+                    metrics_all.append(metrics)
+                    if len(metrics_all) >= 2 and metrics_all[-2].done is not None:
+                        metrics_all[-2].done.synchronize()
+                    if self.cfg.log_every and (step_i + 1) % self.cfg.log_every == 0:
+                        for cb in callbacks:
+                            if hasattr(cb, "on_step_end"):
+                                cb.on_step_end(self, epoch * self.steps_per_epoch + step_i,
+                                               {"loss": float(metrics.loss),
+                                                "lr": float(metrics.lr)})
+                    if self._stop_requested:
+                        preempted = True
+                        break
+                n_steps = len(metrics_all)
+                losses = ([float(x) for x in torch.stack([m.loss for m in metrics_all]).cpu()]
+                          if metrics_all else [])
+                # finite covers grads too: a NaN backward with a finite loss
+                # must still stop the run (the guard kept the old params)
+                finite = bool(np.all(np.isfinite(losses))) and all(
+                    bool(f) for f in torch.stack([m.finite for m in metrics_all]).cpu()
+                ) if metrics_all else True
+                dt = time.time() - t0
+                history["loss"].append(float(np.mean(losses)) if losses else float("nan"))
+                history["lr"].append(float(metrics_all[-1].lr) if metrics_all else float("nan"))
+                history["ips"].append(n_steps * self.cfg.batch_size / dt)
+
+                if preempted:
+                    if ckpt is not None:
+                        ckpt.save(state.step, state)
+                        log.warning("preemption checkpoint saved at step %d", state.step)
+                    history["preempted"] = True
+                    break
+
+                val_loss = None
+                if val_iter_factory is not None:
+                    vlosses = [float(self.eval_step(state, vb)) for vb in val_iter_factory()]
+                    val_loss = float(np.mean(vlosses)) if vlosses else float("nan")
+                    history["val_loss"].append(val_loss)
+
+                log.info("epoch %d loss=%.4f val=%s ips=%.1f lr=%.5f", epoch,
+                         history["loss"][-1],
+                         f"{val_loss:.4f}" if val_loss is not None else "-",
+                         history["ips"][-1], history["lr"][-1])
+                if ckpt is not None and (
+                        (epoch + 1) % max(1, self.cfg.checkpoint_every_epochs) == 0
+                        or epoch == epochs - 1):
+                    ckpt.save(state.step, state)
+                for cb in callbacks:
+                    cb.on_epoch_end(self, state, epoch, history)
+                if not finite:
+                    log.error("non-finite loss at epoch %d -- terminating (NaN guard)", epoch)
+                    break
+        self._stop_requested = False
+        for cb in callbacks:
+            cb.on_train_end(self, state, history)
+        return state, history
 
 
 def pad_to_batch(a: np.ndarray, batch_size: int, fill: float = 0.0) -> np.ndarray:

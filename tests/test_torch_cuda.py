@@ -5,7 +5,8 @@ that has only PyTorch: ``python -m pytest --noconftest -m cuda
 tests/test_torch_cuda.py`` (tests/conftest.py imports JAX). K2 is held
 against its plain version at small, odd shapes: f32 at max|d| <= 1e-4
 max|ref| (TF32 off), bf16 at 2e-2 (one bf16 rounding of g or of the scale
-may land on the other side)."""
+may land on the other side). K1 (forward and backward) is held against its
+plain version and run through autograd and one train step."""
 
 import numpy as np
 import pytest
@@ -89,3 +90,93 @@ def test_predict_fused_on_the_card_matches_predict(cuda_device):
         b = trainer.predict_fused(state, imgs).float()
         assert k2.fused_mbconv_infer.launches - before == len(state.model.encoder.block_names)
         assert float((a - b).abs().max() / a.abs().max()) <= tol
+
+
+# K1, the sorted ListMLE NLL: kernel against its plain version in f32, and
+# autograd through ListMLESorted on the card. The same recurrences run in
+# another order, and exp(s + P) - 1 cancels where a term is ~1, so the bound
+# is chip_smoke.py's: max|d| <= 1e-5 + 3e-5 * max|ref| per output.
+K1_CASES = [(1, 3), (257, 5), (3200, 5), (130, 25), (257, 128), (40, 500)]
+
+
+def _k1_close(got, want):
+    err, ref = float((got - want).abs().max()), float(want.abs().max())
+    assert err <= 1e-5 + 3e-5 * ref, (err, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", K1_CASES)
+def test_k1_matches_plain(n, k, cuda_device):
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    rng = np.random.default_rng(k)
+    s = torch.from_numpy(rng.normal(size=(n, k)).astype(np.float32) * 3).to(cuda_device)
+    g = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).to(cuda_device)
+    before = (k1.listmle_fwd.launches, k1.listmle_bwd.launches)
+    nll, lse = k1.listmle_fwd(s)
+    ds = k1.listmle_bwd(s, lse, g)
+    torch.cuda.synchronize()
+    assert (k1.listmle_fwd.launches, k1.listmle_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want_nll, want_lse = k1.listmle_fwd_plain(s)
+    _k1_close(nll, want_nll)
+    _k1_close(lse, want_lse)
+    _k1_close(ds, k1.listmle_bwd_plain(s, want_lse, g))
+
+
+@pytest.mark.cuda
+def test_k1_spread_and_empty(cuda_device):
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    s = torch.tensor([[0.0, -50.0, -120.0], [5.0, -100.0, -230.0]], device=cuda_device)
+    nll, lse = k1.listmle_fwd(s)
+    ds = k1.listmle_bwd(s, lse, torch.ones(2, device=cuda_device))
+    assert float(nll.abs().max()) < 1e-6 and float(ds.abs().max()) < 1e-4
+    empty_nll, _ = k1.listmle_fwd(torch.zeros((0, 5), device=cuda_device))
+    assert empty_nll.shape == (0,)
+
+
+@pytest.mark.cuda
+def test_k1_autograd_and_auto_impl_on_the_card(cuda_device, monkeypatch):
+    """impl="auto" on a CUDA tensor runs K1 forward and backward, never the
+    plain versions."""
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.ops.listmle import listmle_nll
+
+    rng = np.random.default_rng(0)
+    scores = torch.from_numpy(rng.normal(size=(300, 5)).astype(np.float32))
+    labels = torch.from_numpy(rng.permuted(np.tile(np.arange(5, dtype=np.float32), (300, 1)),
+                                           axis=1))
+    ref = scores.clone().requires_grad_(True)
+    listmle_nll(ref, labels).sum().backward()  # CPU: the plain path
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(k1, "listmle_fwd_plain", refuse)
+    monkeypatch.setattr(k1, "listmle_bwd_plain", refuse)
+    sd = scores.to(cuda_device).requires_grad_(True)
+    before = (k1.listmle_fwd.launches, k1.listmle_bwd.launches)
+    nll = listmle_nll(sd, labels.to(cuda_device), impl="auto")
+    nll.sum().backward()
+    torch.cuda.synchronize()
+    assert (k1.listmle_fwd.launches, k1.listmle_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _k1_close(sd.grad.cpu(), ref.grad)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_runs_k1(cuda_device):
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.train import Trainer
+
+    cfg = ExperimentConfig(model_name="ff_smoke", input_size=64, batch_size=2,
+                           ranking_size=5, rankings_per_image=20, freeze_encoder=True)
+    trainer = Trainer(cfg)
+    state = trainer.init_state()
+    ds = SyntheticDepthDataset(4, 64, 0)
+    batch = {k: np.stack([ds[i][k] for i in range(2)]) for k in ("image", "gt", "mask")}
+    before = (k1.listmle_fwd.launches, k1.listmle_bwd.launches)
+    state, m = trainer.train_step(state, batch)
+    assert bool(m.finite) and np.isfinite(float(m.loss))
+    assert (k1.listmle_fwd.launches, k1.listmle_bwd.launches) == (before[0] + 1, before[1] + 1)

@@ -48,12 +48,59 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert Trainer(ExperimentConfig(model_name="ff_smoke"), device="cpu").device.type == "cpu"
 
 
-def test_kernel_wrapper_has_no_fallback_path():
-    path = os.path.join(REPO, "pldepth_torch", "ops", "fused_mbconv.py")
+@pytest.mark.parametrize("module,fn", [
+    ("fused_mbconv.py", "fused_mbconv_infer"),
+    ("listmle_kernel.py", "listmle_fwd"),
+    ("listmle_kernel.py", "listmle_bwd"),
+    ("listmle_kernel.py", "_launch"),
+    ("listmle_kernel.py", "ListMLESorted"),
+])
+def test_kernel_wrapper_has_no_fallback_path(module, fn):
+    path = os.path.join(REPO, "pldepth_torch", "ops", module)
     tree = ast.parse(open(path).read())
-    fn = next(n for n in tree.body
-              if isinstance(n, ast.FunctionDef) and n.name == "fused_mbconv_infer")
-    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    node = next(n for n in tree.body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and n.name == fn)
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(node))
+
+
+def test_auto_impl_sends_cuda_tensors_to_the_kernel(monkeypatch):
+    """listmle_nll with impl="auto" on a CUDA tensor takes the K1 autograd
+    Function (whose wrappers launch or raise), never the plain loss."""
+    from pldepth_torch.core.device import resolve_impl
+    from pldepth_torch.ops import listmle
+
+    assert resolve_impl("auto", torch.device("cuda")) == "pallas"
+    seen = []
+    monkeypatch.setattr(listmle, "resolve_impl", lambda impl, dev: "pallas")
+    monkeypatch.setattr(listmle, "listmle_sorted", lambda s: seen.append("kernel") or s.sum(-1))
+    monkeypatch.setattr(listmle, "listmle_sorted_plain",
+                        lambda s: (_ for _ in ()).throw(AssertionError("plain")))
+    listmle.listmle_nll(torch.zeros(3, 4), torch.zeros(3, 4), impl="auto")
+    assert seen == ["kernel"]
+
+
+def test_trainer_and_cli_train_raise_without_a_card(monkeypatch, tmp_path):
+    from pldepth_torch.cli import main
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.train import Trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(ExperimentConfig(model_name="ff_smoke"), steps_per_epoch=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "--model_name", "ff_smoke", "--output_dir", str(tmp_path)])
+
+
+def test_failed_build_raises_with_nvcc_output(monkeypatch, tmp_path):
+    from pldepth_torch.ops import _build
+
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'listmle.cu(1): error: no such thing'\nexit 2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="no such thing"):
+        _build.build(["listmle"])
 
 
 def _smoke(cwd):
