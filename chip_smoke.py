@@ -32,7 +32,24 @@ Phases (any failure exits non-zero):
      the K1 loss with the plain one), train images/s through fit, peak
      device memory, the device idle share of a 3-step profiler window with
      the top kernels, and K1 at N=3200, K=5 beside its plain version, its
-     bytes bound and one PyTorch call.
+     bytes bound and one PyTorch call;
+  8. K4 (the int8 matmul) and the int8 serving path: K4 against its plain
+     PyTorch version at the 38 dense int8 site shapes of ff_effnet at
+     448^2, batch 8 (f32 out at rtol = atol = 1e-5, bf16 out within one
+     bf16 ulp), with swish / relu and ragged M, N, K; then seeded
+     synth_weight weights with randomised BN statistics, calibrated on the
+     first batch of 8 seeded 448^2 images, serve 4 batches through
+     run_pipeline with Trainer.jit_predict("quant"): 32 finite maps, 38 K4
+     launches per forward, predict_quant vs predict_bnfold (rel < 0.15,
+     pearson > 0.98), predict_bnfold vs predict (bf16 rel <= 3e-2; f32 at
+     96^2 rel <= 2e-5), and the K4 route vs the plain route of
+     predict_quant (rel <= 1e-2);
+  9. serving times of the four modes: served images/s in "quant" mode
+     through the pipeline, ms per batch of predict_quant, predict_bnfold,
+     predict and predict_fused (alternating rounds), the calibration time,
+     K4 per site beside its plain version, its bound and torch._int_mm
+     plus a torch epilogue, totals per forward, and a profiler breakdown of
+     predict_quant with the device's idle share.
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -40,6 +57,7 @@ The line before the last is the {"kernels": [...]} record; the last is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -48,7 +66,8 @@ import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / f32 non-tensor
+# dense bf16 tensor / f32 non-tensor / dense int8 tensor
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 BATCH_CHECK, BATCH_SERVE, SIZE = 2, 8, 448
 # max|d| / max|ref|; bf16 measured at most 2.9e-3 over the 16 B0 shapes
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -58,6 +77,12 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 K1_RTOL, K1_ATOL = 3e-5, 1e-5
 K1_SHAPES = [(n, k) for k in (3, 5, 25, 128, 500) for n in (1, 257, 3200)]
 BATCH_TRAIN, N_TRAIN, N_VAL, EPOCHS = 32, 64, 32, 10  # 2 steps + 1 val batch per epoch
+K4_TOL = 1e-5  # f32 out: rtol = atol (tests/test_quantize.py:135)
+K4_SITES = 38  # dense int8 sites of one ff_effnet forward
+# K4 with an activation, and ragged M (not a multiple of 64), N (not of 16)
+# and K (not of 4 or of 64): (M, K, N, act)
+K4_EXTRA = [(6272, 480, 112, "swish"), (25088, 240, 40, "relu"), (997, 27, 5, None),
+            (1000, 250, 37, "swish"), (129, 70, 70, "relu"), (65, 4, 33, None)]
 
 
 def fail(msg: str) -> None:
@@ -417,6 +442,362 @@ def k1_times(smi: str, n: int = BATCH_TRAIN * 100, k: int = 5, device="cuda"):
             f"{row['plain_call_ms'] * 1e3:.2f} / {row['library_call_ms'] * 1e3:.2f} us [{smi}]")
     return out
 
+
+@contextlib.contextmanager
+def plain_k4_route():
+    """Route the int8 conv sites to K4's plain version (f64 product on the
+    card) for the duration: the reference route of phase 8."""
+    from pldepth_torch.ops import quant_conv
+    from pldepth_torch.ops import quant_matmul as k4
+
+    saved = quant_conv.quant_matmul
+    quant_conv.quant_matmul = k4.quant_matmul_plain
+    try:
+        yield
+    finally:
+        quant_conv.quant_matmul = saved
+
+
+def k4_sites(trainer, qstate, batch: int, size: int):
+    """The dense int8 sites of one forward in order: dicts with name, M, K,
+    N and the QuantConv, from a batch-1 forward on the plain route (M
+    scaled to ``batch``)."""
+    import torch
+
+    from pldepth_torch.models.quantize import quant_sites
+
+    rows, hooks = [], []
+    for name, mod in quant_sites(qstate.model).items():
+        if mod.groups == 1:
+            def hook(m, inputs, out, name=name):
+                kh, kw, cin, cout = m.kernel_q.shape
+                rows.append({"site": name, "m": batch * out.shape[1] * out.shape[2],
+                             "k": kh * kw * cin, "n": cout, "mod": m})
+            hooks.append(mod.register_forward_hook(hook))
+    with plain_k4_route():
+        trainer.predict_quant(qstate, torch.zeros((1, size, size, 3), device="cuda"))
+    for h in hooks:
+        h.remove()
+    return rows
+
+
+def k4_operands(m: int, k: int, n: int, mod=None, seed: int = 0):
+    """Seeded int8 x (M, K) on the card, and the site's packed weights, or
+    seeded ones of the same kind where ``mod`` is None."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=g)
+    if mod is not None:
+        _, _, a_eff = mod.derived()
+        return x, mod.kernel_q.reshape(k, n).contiguous(), mod.w_scale, mod.bias, a_eff
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=g)
+    ws = torch.rand(n, device="cuda", generator=g) * 0.01 + 1e-3
+    b = torch.randn(n, device="cuda", generator=g) * 0.1
+    return x, w, ws, b, torch.tensor(0.05 / max(1, k) ** 0.5, device="cuda")
+
+
+def check_k4(sites):
+    """Phase 8 (1): K4 against its plain version at every site shape and
+    K4_EXTRA, f32 and bf16 out. Returns (rows, max|d| of the bf16 outputs
+    at the site shapes)."""
+    import torch
+
+    from pldepth_torch.ops import quant_matmul as k4
+
+    cases = [(s["site"], s["m"], s["k"], s["n"], None, s["mod"]) for s in sites]
+    cases += [(f"extra{i}", m, k, n, act, None) for i, (m, k, n, act) in enumerate(K4_EXTRA)]
+    rows, max_err = [], 0.0
+    for i, (name, m, k, n, act, mod) in enumerate(cases):
+        ops = k4_operands(m, k, n, mod, seed=500 + i)
+        row = {"case": name, "m": m, "k": k, "n": n, "act": act}
+        for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            got = k4.quant_matmul(*ops, act=act, out_dtype=dt).float()
+            torch.cuda.synchronize()
+            want = k4.quant_matmul_plain(*ops, act=act, out_dtype=dt).float()
+            if got.shape != (m, n) or not torch.isfinite(got).all():
+                fail(f"K4 {name} {dname}: shape {tuple(got.shape)} or non-finite")
+            d = (got - want).abs()
+            if dname == "float32":
+                bad = int((d > K4_TOL + K4_TOL * want.abs()).sum())
+            else:  # one bf16 ulp of the reference: 2^(e - 7) for |want| in [2^e, 2^(e+1))
+                ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+                bad = int((d > ulp).sum())
+            err = float(d.max())
+            row[dname] = {"max_abs_err": err, "rel": err / max(float(want.abs().max()), 1e-12),
+                          "outside_tol": bad}
+            if bad:
+                fail(f"K4 {name} {dname} (M {m}, K {k}, N {n}, act {act}): {bad} values "
+                     f"outside the tolerance, max|d| {err:.3e}")
+            if dname == "bfloat16" and mod is not None:
+                max_err = max(max_err, err)
+        rows.append(row)
+        log(f"K4 vs plain {name:36s} M {m:6d} K {k:5d} N {n:4d} act {str(act):5s}: f32 max|d| "
+            f"{row['float32']['max_abs_err']:.3e}, bf16 max|d| "
+            f"{row['bfloat16']['max_abs_err']:.3e} "
+            f"(f32 {K4_TOL:g} + {K4_TOL:g}|ref|, bf16 1 ulp)")
+    return rows, max_err
+
+
+def _rel_pearson(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12)), float(np.corrcoef(a, b)[0, 1])
+
+
+def quant_phase(decode, chunks, gtr, gstate, smi: str):
+    """Phase 8: K4 checks, then int8 serving end to end with its gates.
+    Returns (trainer, state, qstate, sites, record)."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.models.pretrained import flax_from_state_dict, overlay_synthetic
+    from pldepth_torch.ops import quant_matmul as k4
+    from pldepth_torch.serve.pipeline import depth_writer, run_pipeline
+    from pldepth_torch.train import Trainer
+
+    rec = {}
+    trainer = Trainer(ExperimentConfig(model_name="ff_effnet", input_size=SIZE),
+                      steps_per_epoch=1)
+    state = trainer.init_state()
+    overlay_synthetic(state.model, list(flax_from_state_dict(state.model.state_dict())))
+    randomise_bn(state.model, seed=3)
+
+    first = decode(chunks[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qstate = trainer.prepare_quant(state, first)
+    torch.cuda.synchronize()
+    rec["calib_s_first"] = time.perf_counter() - t0  # fold + pack + one calibration forward
+    t0 = time.perf_counter()
+    trainer.prepare_quant(state, first)
+    torch.cuda.synchronize()
+    rec["calib_s_cached_pack"] = time.perf_counter() - t0
+    log(f"prepare_quant (calibration on one batch of {BATCH_SERVE} at {SIZE}^2): "
+        f"{rec['calib_s_first'] * 1e3:.1f} ms first (fold + pack + calibrate), "
+        f"{rec['calib_s_cached_pack'] * 1e3:.1f} ms with the pack cached [{smi}]")
+
+    sites = k4_sites(trainer, qstate, BATCH_SERVE, SIZE)
+    if len(sites) != K4_SITES:
+        fail(f"expected {K4_SITES} dense int8 sites, found {len(sites)}")
+    macs = sum(s["m"] * s["k"] * s["n"] for s in sites)
+    log(f"{len(sites)} dense int8 sites, {macs / 1e9:.2f} G multiply-adds per forward of "
+        f"{BATCH_SERVE} at {SIZE}^2")
+    rec["k4_checks"], rec["k4_max_abs_err"] = check_k4(sites)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        serve = trainer.jit_predict(fused="quant")
+        write = depth_writer(tmp, save_png=False, stems={f: f for c in chunks for f in c})
+        k4.quant_matmul.launches = 0
+        t0 = time.time()
+        run_pipeline(chunks, lambda c: first if c is chunks[0] else decode(c),
+                     lambda imgs: serve(qstate, imgs), write)
+        rec["pipeline_s_cold"] = time.time() - t0
+        launches = k4.quant_matmul.launches
+        files = sorted(os.listdir(tmp))
+        if len(files) != len(chunks) * BATCH_SERVE:
+            fail(f"int8 serving: expected {len(chunks) * BATCH_SERVE} depth maps, "
+                 f"found {len(files)}")
+        for f in files:
+            d = np.load(os.path.join(tmp, f))
+            if d.shape != (SIZE, SIZE) or not np.isfinite(d).all():
+                fail(f"int8 serving {f}: shape {d.shape} or non-finite values")
+    log(f"served {len(files)} int8 depth maps (448, 448), finite; K4 launches {launches} over "
+        f"{len(chunks)} forwards")
+    if launches != K4_SITES * len(chunks):
+        fail(f"K4 launched {launches} times over {len(chunks)} forwards, expected {K4_SITES} each")
+    rec["k4_launches_main_path"] = launches
+
+    imgs = torch.from_numpy(first).cuda()
+    pq = trainer.predict_quant(qstate, imgs).float().cpu()
+    pb = trainer.predict_bnfold(state, imgs).float().cpu()
+    pp = trainer.predict(state, imgs).float().cpu()
+    with plain_k4_route():
+        pq_plain = trainer.predict_quant(qstate, imgs).float().cpu()
+    gx = gold_images()
+    g_fold = gtr.predict_bnfold(gstate, gx).cpu()
+    g_plain = gtr.predict(gstate, gx).cpu()
+    gates = [("quant_vs_bnfold", pq, pb, 0.15, 0.98),
+             ("bnfold_vs_predict_bf16", pb, pp, 3e-2, None),
+             ("k4_route_vs_plain_route", pq, pq_plain, 1e-2, None),
+             ("bnfold_vs_predict_f32_96", g_fold, g_plain, 2e-5, None)]
+    for name, a, b, tol, ptol in gates:
+        rel, r = _rel_pearson(a, b)
+        rec[name] = {"rel": rel, "pearson": r}
+        log(f"{name}: rel {rel:.3e} (tol {tol:g}), pearson {r:.6f}"
+            + (f" (tol > {ptol})" if ptol else ""))
+        if not rel <= tol or (ptol is not None and not r > ptol):
+            fail(f"{name}: rel {rel:.3e}, pearson {r:.6f}")
+    return trainer, state, qstate, sites, rec
+
+
+def gold_images():
+    """The TF golden's 96^2 input images in [0, 1]."""
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(here, "tests", "golden", "full_model_ff_effnet.npz")) as gold:
+        return gold["x_raw"] / 255.0
+
+
+def k4_cost(m: int, k: int, n: int):
+    """(bytes, ops) of one K4 call: x, w, w_scale, bias and a_scale read
+    once, the bf16 output written once; 2 M K N int8 operations."""
+    return m * k + k * n + 8 * n + 4 + 2 * m * n, 2 * m * k * n
+
+
+def k4_times(sites, smi: str, reps: int = 5):
+    """Phase 9: K4 per site beside its plain version, its bound and
+    torch._int_mm plus a torch epilogue (device time per call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pldepth_torch.ops import quant_matmul as k4
+
+    def library(x, w, ws, b, a):
+        acc = torch._int_mm(x, w)
+        return (acc.float() * (ws * a) + b).to(torch.bfloat16)
+
+    def library_padded(x, w, ws, b, a):
+        # _int_mm takes K in multiples of 8 only; zero columns add nothing
+        pad = -x.shape[1] % 8
+        return library(F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad)), ws, b, a)
+
+    rows = []
+    for i, s in enumerate(sites):
+        m, k, n = s["m"], s["k"], s["n"]
+        ops = k4_operands(m, k, n, s["mod"], seed=900 + i)
+        nb, no = k4_cost(m, k, n)
+        row = {"site": s["site"], "m": m, "k": k, "n": n,
+               "ms": device_ms(lambda: k4.quant_matmul(*ops), reps),
+               "plain_ms": device_ms(lambda: k4.quant_matmul_plain(*ops), reps),
+               "bytes": nb, "ops": no, "bytes_ms": nb / HBM_BYTES_PER_S * 1e3,
+               "ops_ms": no / PEAK_FLOPS["int8"] * 1e3}
+        row["bound_ms"], row["bound_by"] = bound_ms(nb, no, PEAK_FLOPS["int8"])
+        try:
+            library(*ops)
+            row["library_ms"], row["library_note"] = device_ms(lambda: library(*ops), reps), ""
+        except RuntimeError as e:  # a measurement yardstick only: the port never calls it
+            row["library_ms"], row["library_note"] = None, str(e).splitlines()[0][:160]
+            row["library_padded_ms"] = device_ms(lambda: library_padded(*ops), reps)
+        row["tops"] = no / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+        lib = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
+               else f"n/a ({row['library_note']}); with K zero-padded to a multiple of 8 "
+                    f"{row['library_padded_ms']:.4f} ms")
+        log(f"K4 {s['site']:36s} M {m:6d} K {k:5d} N {n:4d}: {row['ms']:.4f} ms "
+            f"({row['tops']:.1f} TOP/s), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), _int_mm+epilogue {lib} [{smi}]")
+    tot = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "bound_ms", "bytes_ms",
+                                                      "ops_ms")}
+    # the library total covers every site: where _int_mm refuses K, its
+    # zero-padded call
+    tot["library_ms"] = sum(r["library_ms"] if r["library_ms"] is not None
+                            else r["library_padded_ms"] for r in rows)
+    tot["library_padded_sites"] = [r["site"] for r in rows if r["library_ms"] is None]
+    log(f"K4 per forward ({len(rows)} sites, batch {BATCH_SERVE}): {tot['ms']:.3f} ms, plain "
+        f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f}, "
+        f"ops {tot['ops_ms']:.4f}); _int_mm+epilogue {tot['library_ms']:.3f} ms (K zero-padded "
+        f"at {tot['library_padded_sites']}) [{smi}]")
+    return rows, tot
+
+
+def k3_bounds():
+    """K3 (pldepth_tpu/ops/banded_mbconv.py, still to port) computes one
+    whole inference MBConv, so its bound is block_cost's for the blocks it
+    was written for: the B0 stage-2 and stage-3 blocks at 448^2, batch 8,
+    bf16 (224^2 and 112^2 inputs). Reckoned from the shapes; no card time."""
+    import torch
+
+    from pldepth_torch.models import get_pl_depth_net
+    from pldepth_torch.models.fused_infer import plan_encoder
+
+    b0 = get_pl_depth_net("ff_effnet", "bfloat16").make()
+    rows = []
+    for plan in plan_encoder(b0.encoder, (SIZE, SIZE), torch.bfloat16):
+        if not plan.name.startswith(("stage2_", "stage3_")):
+            continue
+        nb, fl = block_cost(plan, BATCH_SERVE, "bfloat16")
+        bound, by = bound_ms(nb, fl, PEAK_FLOPS["bfloat16"])
+        rows.append({"block": plan.name, "in_hw": list(plan.in_hw), "bytes": nb, "flops": fl,
+                     "bound_ms": bound, "bound_by": by})
+        log(f"K3 bound {plan.name} x(8, {plan.in_hw[0]}, {plan.in_hw[1]}) k{plan.kernel} "
+            f"s{plan.stride}: {bound:.4f} ms ({by}: {nb} B, {fl / 1e9:.3f} GFLOP)")
+    log(f"K3 bound, stage-2 and stage-3 blocks: {sum(r['bound_ms'] for r in rows):.4f} ms "
+        f"per forward of {BATCH_SERVE} at {SIZE}^2")
+    return rows
+
+
+def serving_times(trainer, state, qstate, decode, chunks, smi: str):
+    """Phase 9: served img/s in "quant" mode, ms per batch of the four
+    serving modes in alternating rounds, and a profiler breakdown of
+    predict_quant with the device idle share."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pldepth_torch.serve.pipeline import depth_writer, run_pipeline
+
+    rec = {}
+    serve = trainer.jit_predict(fused="quant")
+    n_e2e = 8
+    batches = [decode(c) for c in chunks] * (n_e2e // len(chunks))
+    e2e_chunks = [[f"q{b}_{i}" for i in range(BATCH_SERVE)] for b in range(n_e2e)]
+    index = {c[0]: b for b, c in enumerate(e2e_chunks)}
+    with tempfile.TemporaryDirectory() as tmp:
+        write = depth_writer(tmp, save_png=False, stems={f: f for c in e2e_chunks for f in c})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_pipeline(e2e_chunks, lambda c: batches[index[c[0]]],
+                     lambda imgs: serve(qstate, imgs), write)
+        wall = time.perf_counter() - t0
+    rec["served_img_per_s_quant"] = n_e2e * BATCH_SERVE / wall
+    log(f"served {n_e2e * BATCH_SERVE} images through the pipeline (warm, quant): "
+        f"{rec['served_img_per_s_quant']:.1f} img/s, {wall * 1e3 / n_e2e:.3f} ms per batch [{smi}]")
+
+    imgs = torch.from_numpy(batches[0]).cuda()
+    fns = {"predict_quant": lambda: trainer.predict_quant(qstate, imgs),
+           "predict_bnfold": lambda: trainer.predict_bnfold(state, imgs),
+           "predict": lambda: trainer.predict(state, imgs),
+           "predict_fused": lambda: trainer.predict_fused(state, imgs)}
+    samples = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(6):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            samples[name].append(cuda_ms(fns[name], reps=10))
+    times = {name: float(np.median(v)) for name, v in samples.items()}
+    for name, v in samples.items():
+        log(f"{name}: {times[name]:.3f} ms per batch of {BATCH_SERVE} at {SIZE}^2 bf16 (median "
+            f"of {len(v)} rounds of 10, min {min(v):.3f}, max {max(v):.3f}) [{smi}]")
+    rec["batch_ms"], rec["batch_ms_samples"] = times, samples
+
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        for _ in range(n_prof):
+            fns["predict_quant"]()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=25)
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_prof) for e in events
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+    idle = 1 - busy / times["predict_quant"]
+    log(table)
+    log(f"profiled predict_quant x{n_prof}: device busy {busy:.3f} ms per batch; unprofiled "
+        f"batch {times['predict_quant']:.3f} ms -> idle share {idle:.3f} [{smi}]")
+    for name, ms in kernels[:12]:
+        log(f"  top kernel {ms:8.3f} ms/batch  {name[:110]}")
+    rec["quant_profile"] = {"table": table, "device_busy_ms": busy, "idle_share": idle,
+                            "top_kernels": [{"name": n, "ms_per_batch": ms}
+                                            for n, ms in kernels[:20]]}
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every number here as JSON")
@@ -660,6 +1041,20 @@ def main() -> int:
     # 7. training times --------------------------------------------------------------
     record["train_times"] = train_times(trainer_t, state_t, cfg_t, smi)
     record["k1_times"] = k1t = k1_times(smi)
+    del trainer_t, state_t
+    torch.cuda.empty_cache()
+
+    # 8. K4 and int8 serving -----------------------------------------------------------
+    trainer_q, state_q, qstate, sites, rec_q = quant_phase(decode, chunks, gtr, gstate, smi)
+    record["quant"] = rec_q
+
+    # 9. serving times of the four modes, K4 per site ------------------------------------
+    record["quant_times"] = serving_times(trainer_q, state_q, qstate, decode, chunks, smi)
+    record["k4_sites"], k4t = k4_times(sites, smi)
+    record["k4_totals"] = k4t
+    record["k3_bounds"] = k3_bounds()
+    for s in record["k4_sites"]:
+        s.pop("mod", None)
 
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",
@@ -676,7 +1071,14 @@ def main() -> int:
                                             "library_ms")},
     } for name, replaces, err in (
         ("listmle_fwd", "pldepth_tpu/ops/listmle_pallas.py:111", k1_fwd_err),
-        ("listmle_bwd", "pldepth_tpu/ops/listmle_pallas.py:121", k1_bwd_err))]
+        ("listmle_bwd", "pldepth_tpu/ops/listmle_pallas.py:121", k1_bwd_err))] + [{
+        "name": "quant_matmul", "route": "cuda", "source": "pldepth_torch/csrc/quant_matmul.cu",
+        "replaces": "pldepth_tpu/ops/quant_matmul.py:44",
+        "launches": rec_q["k4_launches_main_path"], "max_abs_err": rec_q["k4_max_abs_err"],
+        "ms": k4t["ms"], "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
+        "bound_by": "bytes" if k4t["bytes_ms"] >= k4t["ops_ms"] else "operations",
+        "library_ms": k4t["library_ms"],
+    }]
     record["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

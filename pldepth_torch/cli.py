@@ -1,13 +1,15 @@
-"""Command line of the port: ``python -m pldepth_torch.cli train|predict ...``.
+"""Command line of the port: ``python -m pldepth_torch.cli train|predict|serve ...``.
 
-The ``train`` and ``predict`` commands of ``pldepth_tpu/cli.py`` with the
-same flag names, defaults and ``true``/``false`` booleans, written with
-argparse, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
+The ``train``, ``predict`` and ``serve`` commands of ``pldepth_tpu/cli.py``
+with the same flag names, defaults and ``true``/``false`` booleans, written
+with argparse, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 versions of the kernels). ``train`` runs ``Trainer.fit`` and saves
 ``weights.npz``; the post-train evaluation that follows in the JAX command
-comes with the eval slice (ROADMAP.md queue 1 item 8). Options the port
-does not run yet raise NotImplementedError naming their ROADMAP item. The
-other commands come with later slices (ROADMAP.md queue 1).
+comes with the eval slice (ROADMAP.md queue 1 item 8). ``predict`` and
+``serve`` with their default flags serve the int8 graph (dense convs on K4,
+ops/quant_matmul.py), calibrated on the first input batch(es). Options the
+port does not run yet raise NotImplementedError naming their ROADMAP item.
+The other commands come with later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -109,32 +111,46 @@ def _parser() -> argparse.ArgumentParser:
     pr.add_argument("--input_size", default=448, type=int)
     pr.add_argument("--batch_size", default=8, type=int)
     pr.add_argument("--save_png", default=True, type=_bool)
-    pr.add_argument("--fused_encoder", default=False, type=_bool,
-                    help="run every encoder MBConv block on the fused kernel "
-                         "(ff_effnet family)")
-    pr.add_argument("--bn_fold", default=True, type=_bool,
-                    help="BN-folded serving graph (not ported yet); "
-                         "--fused_encoder takes precedence")
-    pr.add_argument("--quantize", default="auto", choices=["auto", "", "int8"],
-                    help="int8 serving (not ported yet); 'auto' = int8 for the "
-                         "ff_effnet family unless --fused_encoder/--bn_fold "
-                         "override")
+    _add_serving_mode_options(pr, "activation scales calibrate on the first input batch")
     pr.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    sv = sub.add_parser("serve", help="serving daemon: watch a directory, write depth maps")
+    sv.add_argument("--model_name", default="ff_effnet")
+    sv.add_argument("--load_model_path", default="", help="weights .npz (live model source)")
+    sv.add_argument("--artifact", default="",
+                    help="exported artifact (not ported yet: ROADMAP.md queue 1 item 10)")
+    sv.add_argument("--watch_dir", required=True)
+    sv.add_argument("--out_dir", required=True)
+    sv.add_argument("--input_size", default=448, type=int)
+    sv.add_argument("--batch_size", default=8, type=int)
+    sv.add_argument("--save_png", default=False, type=_bool)
+    sv.add_argument("--poll_interval", default=0.5, type=float)
+    sv.add_argument("--once", default=False, type=_bool,
+                    help="process the current backlog and exit")
+    _add_serving_mode_options(sv, "scales calibrate over the first dispatched batches")
+    sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
-def predict(args: argparse.Namespace) -> dict:
-    """Writes <name>_depth.npy (+ minmax png preview) per input image."""
+def _add_serving_mode_options(p: argparse.ArgumentParser, calib: str) -> None:
+    p.add_argument("--fused_encoder", default=False, type=_bool,
+                   help="run every encoder MBConv block on the fused kernel "
+                        "(ff_effnet family)")
+    p.add_argument("--bn_fold", default=True, type=_bool,
+                   help="fold batch-norms into biased convs for serving "
+                        "(models/bn_fold.py); --fused_encoder takes precedence")
+    p.add_argument("--quantize", default="auto", choices=["auto", "", "int8"],
+                   help="int8 serving (models/quantize.py, dense convs on K4); "
+                        "'auto' = int8 for the ff_effnet family unless "
+                        "--fused_encoder/--bn_fold override; '' = the float "
+                        f"bn_fold graph; {calib}")
+
+
+def _serving_trainer(args: argparse.Namespace):
+    """(trainer, state, serving mode) from the weights of ``--load_model_path``."""
     from pldepth_torch.core.config import ExperimentConfig
-    from pldepth_torch.serve.pipeline import (
-        decode_image_chunk,
-        depth_writer,
-        run_pipeline,
-        unique_stems,
-    )
     from pldepth_torch.train.checkpoint import infer_decoder_head_ch, load_weights_npz
-    from pldepth_torch.train.trainer import Trainer, pad_to_batch
+    from pldepth_torch.train.trainer import Trainer
 
     cfg = ExperimentConfig(
         model_name=args.model_name, input_size=args.input_size,
@@ -143,8 +159,22 @@ def predict(args: argparse.Namespace) -> dict:
     mode = Trainer.serving_mode(args.fused_encoder, args.bn_fold, args.quantize,
                                 model_name=args.model_name)
     trainer = Trainer(cfg, steps_per_epoch=1, device=args.device)
-    predict_fn = trainer.jit_predict(fused=mode)
     state = load_weights_npz(args.load_model_path, trainer.init_state())
+    return trainer, state, mode
+
+
+def predict(args: argparse.Namespace) -> dict:
+    """Writes <name>_depth.npy (+ minmax png preview) per input image."""
+    from pldepth_torch.serve.pipeline import (
+        decode_image_chunk,
+        depth_writer,
+        run_pipeline,
+        unique_stems,
+    )
+    from pldepth_torch.train.trainer import pad_to_batch
+
+    trainer, state, mode = _serving_trainer(args)
+    predict_fn = trainer.jit_predict(fused=mode)
 
     if os.path.isdir(args.inputs):
         files = sorted(
@@ -159,13 +189,67 @@ def predict(args: argparse.Namespace) -> dict:
 
     bs = args.batch_size
     chunks = [files[s: s + bs] for s in range(0, len(files), bs)]
+    calib = None
+    if mode == "quant":
+        # activation scales calibrate on the first input chunk, reused below
+        calib = pad_to_batch(decode_image_chunk(chunks[0], args.input_size), bs)
+        state = trainer.prepare_quant(state, calib)
+
+    def decode(chunk):
+        if calib is not None and chunk is chunks[0]:
+            return calib
+        return pad_to_batch(decode_image_chunk(chunk, args.input_size), bs)
+
     run_pipeline(
         chunks,
-        lambda chunk: pad_to_batch(decode_image_chunk(chunk, args.input_size), bs),
+        decode,
         lambda imgs: predict_fn(state, imgs),
         depth_writer(args.out_dir, args.save_png, unique_stems(files)),
     )
     return {"n": len(files), "out_dir": args.out_dir}
+
+
+N_CALIB_BATCHES = 8  # the daemon's scales calibrate over this many first batches
+
+
+def serve(args: argparse.Namespace) -> dict:
+    """Serving daemon (``pldepth_tpu/cli.py serve``) from a weights
+    checkpoint: new images in ``--watch_dir`` become depth maps in
+    ``--out_dir`` (serve/daemon.py)."""
+    import numpy as np
+
+    from pldepth_torch.serve.daemon import serve_directory
+    from pldepth_torch.train.trainer import pad_to_batch
+
+    if bool(args.load_model_path) == bool(args.artifact):
+        raise SystemExit("pass exactly one of --load_model_path / --artifact")
+    if args.artifact:
+        raise NotImplementedError(
+            "--artifact (serving an exported model) is not ported yet: ROADMAP.md "
+            "queue 1 item 10 (export)")
+    trainer, state, mode = _serving_trainer(args)
+    predict_fn = trainer.jit_predict(fused=mode)
+    if mode == "quant":
+        # lazy calibration (the daemon may start on an empty directory),
+        # over the first N_CALIB_BATCHES dispatched batches: one
+        # unrepresentative first batch would otherwise pin the scales
+        calib = {"batches": [], "state": None}
+
+        def infer(imgs):
+            if len(calib["batches"]) < N_CALIB_BATCHES:
+                calib["batches"].append(np.asarray(imgs))
+                calib["state"] = trainer.prepare_quant(state, calib["batches"])
+                log.info("int8 activation scales calibrated on %d/%d dispatched batch(es)",
+                         len(calib["batches"]), N_CALIB_BATCHES)
+            return predict_fn(calib["state"], imgs)
+    else:
+        infer = lambda imgs: predict_fn(state, imgs)  # noqa: E731
+    n = serve_directory(
+        args.watch_dir, args.out_dir, infer, args.input_size, args.batch_size,
+        pad_batch=lambda a: pad_to_batch(a, args.batch_size), save_png=args.save_png,
+        poll_interval=args.poll_interval, once=args.once,
+    )
+    return {"processed": n, "out_dir": args.out_dir}
 
 
 def _make_config(kw: dict):
@@ -293,6 +377,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     if args.command == "predict":
         print(json.dumps(predict(args)))
+    elif args.command == "serve":
+        print(json.dumps(serve(args)))
     elif args.command == "train":
         print(json.dumps(train(args)))
     return 0

@@ -7,7 +7,9 @@ names are the flax ones (``stem_conv``, ``stage2_block0.dw_conv``,
 A forward given a ``TrainPass`` (models/layers.py) runs in train mode:
 batch-statistics BN, and drop-path on the residual blocks at rate
 ``drop_connect_rate * block_idx / total_blocks`` with draws from the pass's
-generator.
+generator. ``bn_fold=True`` builds the inference graph with BN folded into
+biased convs (models/bn_fold.py); ``quant`` ("int8" or "calib") builds it
+with the quantization sites of models/quantize.py, which implies the fold.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass, swish
+from pldepth_torch.models.quantize import make_conv
 
 # (expand_ratio, channels, repeats, stride, kernel) for B0, per stage 1..7.
 _STAGE_DEFS = (
@@ -80,22 +83,27 @@ class MBConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, expand: int, kernel: int,
                  stride: int, se_ratio: float = 0.25, drop_rate: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, bn_fold: bool = False,
+                 quant=False):
         super().__init__()
         self.in_ch, self.out_ch, self.expand = in_ch, out_ch, expand
         self.kernel, self.stride = kernel, stride
         self.drop_rate = drop_rate
         self.dtype = dtype
+        self.fold = fold = bn_fold or bool(quant)  # quant graphs are BN-folded
         ce = in_ch * expand
         if expand != 1:
-            self.expand_conv = Conv(in_ch, ce, 1, bias=False, dtype=dtype)
-            self.expand_bn = BatchNorm(ce)
-        self.dw_conv = Conv(ce, ce, kernel, stride=stride, groups=ce, bias=False,
-                            dtype=dtype)
-        self.dw_bn = BatchNorm(ce)
+            self.expand_conv = make_conv(quant, dtype, in_ch, ce, 1, bias=fold)
+            if not fold:
+                self.expand_bn = BatchNorm(ce)
+        self.dw_conv = make_conv(quant, dtype, ce, ce, kernel, stride=stride, groups=ce,
+                                 bias=fold)
+        if not fold:
+            self.dw_bn = BatchNorm(ce)
         self.se = SqueezeExcite(ce, max(1, int(in_ch * se_ratio)), dtype=dtype)
-        self.project_conv = Conv(ce, out_ch, 1, bias=False, dtype=dtype)
-        self.project_bn = BatchNorm(out_ch)
+        self.project_conv = make_conv(quant, dtype, ce, out_ch, 1, bias=fold)
+        if not fold:
+            self.project_bn = BatchNorm(out_ch)
 
     @property
     def residual(self) -> bool:
@@ -106,11 +114,15 @@ class MBConv(nn.Module):
         inputs = x
         expand_act = None
         if self.expand != 1:
-            x = swish(self.expand_bn(self.expand_conv(x), train).to(dt))
+            x = self.expand_conv(x)
+            x = swish(x if self.fold else self.expand_bn(x, train).to(dt))
             expand_act = x  # "blockXa_expand_activation" tap point
-        x = swish(self.dw_bn(self.dw_conv(x), train).to(dt))
+        x = self.dw_conv(x)
+        x = swish(x if self.fold else self.dw_bn(x, train).to(dt))
         x = self.se(x)
-        x = self.project_bn(self.project_conv(x), train).to(dt)
+        x = self.project_conv(x)
+        if not self.fold:
+            x = self.project_bn(x, train).to(dt)
         if self.residual:
             if train is not None and self.drop_rate > 0:
                 # drop-path: one Bernoulli(keep) draw per sample
@@ -127,14 +139,16 @@ class EfficientNetEncoder(nn.Module):
     {"expand_3": 1/4 res, "expand_4": 1/8, "expand_6": 1/16}."""
 
     def __init__(self, variant: str = "b0", dtype: torch.dtype = torch.bfloat16,
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, bn_fold: bool = False, quant=False):
         super().__init__()
         self.variant, self.dtype = variant, dtype
+        self.fold = fold = bn_fold or bool(quant)
         width, depth = VARIANTS[variant]
         total_blocks = sum(round_repeats(r, depth) for (_, _, r, _, _) in _STAGE_DEFS)
         stem_ch = round_filters(32, width)
-        self.stem_conv = Conv(3, stem_ch, 3, stride=2, bias=False, dtype=dtype)
-        self.stem_bn = BatchNorm(stem_ch)
+        self.stem_conv = make_conv(quant, dtype, 3, stem_ch, 3, stride=2, bias=fold)
+        if not fold:
+            self.stem_bn = BatchNorm(stem_ch)
         self.block_names = []
         self.tap_channels: Dict[str, int] = {}
         in_ch = stem_ch
@@ -147,24 +161,28 @@ class EfficientNetEncoder(nn.Module):
                 self.add_module(name, MBConv(
                     in_ch, out_ch, expand, kernel, stride if i == 0 else 1,
                     drop_rate=drop_connect_rate * len(self.block_names) / total_blocks,
-                    dtype=dtype,
+                    dtype=dtype, bn_fold=bn_fold, quant=quant,
                 ))
                 self.block_names.append(name)
                 if i == 0 and stage_num in DECODER_TAP_STAGES:
                     self.tap_channels[f"expand_{stage_num}"] = in_ch * expand
                 in_ch = out_ch
         self.top_ch = round_filters(1280, width)
-        self.top_conv = Conv(in_ch, self.top_ch, 1, bias=False, dtype=dtype)
-        self.top_bn = BatchNorm(self.top_ch)
+        self.top_conv = make_conv(quant, dtype, in_ch, self.top_ch, 1, bias=fold)
+        if not fold:
+            self.top_bn = BatchNorm(self.top_ch)
+
+    def _bn_swish(self, x: torch.Tensor, name: str, train: Optional[TrainPass]):
+        return swish(x if self.fold else getattr(self, name)(x, train).to(self.dtype))
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None):
-        dt = self.dtype
-        x = swish(self.stem_bn(self.stem_conv(x.to(dt)), train).to(dt))
+        if self.fold and train is not None:
+            raise ValueError("bn_fold is an inference-only mode (train=False)")
+        x = self._bn_swish(self.stem_conv(x.to(self.dtype)), "stem_bn", train)
         taps: Dict[str, torch.Tensor] = {}
         for name in self.block_names:
             x, expand_act = getattr(self, name)(x, train)
             stage, i = name[len("stage"):].split("_block")
             if i == "0" and int(stage) in DECODER_TAP_STAGES:
                 taps[f"expand_{stage}"] = expand_act
-        x = swish(self.top_bn(self.top_conv(x), train).to(dt))
-        return x, taps
+        return self._bn_swish(self.top_conv(x), "top_bn", train), taps

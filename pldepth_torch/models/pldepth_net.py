@@ -2,7 +2,9 @@
 family, EfficientNet encoder + skip-concat decoder, NHWC in and out.
 
 A :class:`PLDepthModel` names a model and knows how to build a fresh
-``nn.Module`` for it; ``init_module`` initialises one from a
+``nn.Module`` for it (``make()``; ``make(bn_fold=True)`` and
+``make(quant="int8" | "calib")`` build its serving graphs, models/bn_fold.py
+and models/quantize.py); ``init_module`` initialises one from a
 ``torch.Generator`` on a device. The weights live in the module, which the
 trainer's state holds. :func:`partition_params` labels parameters for the
 BN-only-trainable encoder.
@@ -29,15 +31,16 @@ class EffNetFullyFledged(nn.Module):
 
     def __init__(self, variant: str = "b0", dtype: torch.dtype = torch.bfloat16,
                  fused_tail: bool = True, head_ch: int = 32,
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, bn_fold: bool = False, quant=False):
         super().__init__()
         self.variant, self.dtype = variant, dtype
         self.fused_tail, self.head_ch = fused_tail, head_ch
         self.encoder = EfficientNetEncoder(variant, dtype=dtype,
-                                           drop_connect_rate=drop_connect_rate)
+                                           drop_connect_rate=drop_connect_rate,
+                                           bn_fold=bn_fold, quant=quant)
         self.decoder = SkipConcatDecoder(
             self.encoder.top_ch, self.encoder.tap_channels, head_ch=head_ch,
-            dtype=dtype, fused_tail=fused_tail,
+            dtype=dtype, fused_tail=fused_tail, bn_fold=bn_fold, quant=quant,
         )
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
@@ -48,7 +51,7 @@ class EffNetFullyFledged(nn.Module):
 @dataclasses.dataclass(frozen=True)
 class PLDepthModel:
     name: str
-    make: Callable[[], nn.Module]  # builds the architecture, weights unset
+    make: Callable[..., nn.Module]  # builds the architecture, weights unset
     preprocess: str  # normalization family for data/preprocess.py
 
     def init_module(self, generator: torch.Generator,
@@ -64,8 +67,8 @@ def _effnet(name: str, variant: str):
                 drop_connect_rate=0.2) -> PLDepthModel:
         return PLDepthModel(
             name,
-            lambda: EffNetFullyFledged(variant, dtype, fused_tail, head_ch,
-                                       drop_connect_rate),
+            lambda **mode: EffNetFullyFledged(variant, dtype, fused_tail, head_ch,
+                                              drop_connect_rate, **mode),
             "effnet",
         )
     return factory

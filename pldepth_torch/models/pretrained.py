@@ -18,7 +18,8 @@ batch_stats/a/b/var         a.b.running_var
 ==========================  ==========================================
 
 ``decoder/head`` is flax ``_ConvParams`` (decoders.py:40-57) with the same
-kernel/bias names, so it follows the same rule.
+kernel/bias names, so it follows the same rule. The int8 serving tree of
+``prepare_quant`` maps with :func:`quant_state_dict_from_flax`.
 """
 
 from __future__ import annotations
@@ -60,6 +61,26 @@ def flax_entry_to_torch(key: str, arr: np.ndarray) -> Tuple[str, torch.Tensor]:
 def state_dict_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flattened flax arrays -> port ``state_dict`` tensors (f32, CPU)."""
     return dict(flax_entry_to_torch(k, v) for k, v in flat.items())
+
+
+def quant_state_dict_from_flax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flattened JAX ``prepare_quant`` tree -> the port's ``quant="int8"``
+    ``state_dict``. A quantization site's leaves keep their names and the
+    JAX layout (``kernel_q`` int8 HWIO, ``w_scale``, ``bias``, ``a_scale``
+    f32); every other leaf (squeeze-excite, the head) maps as float weights
+    do."""
+    sites = {k.rsplit("/", 1)[0] for k in flat if k.endswith("/kernel_q")}
+    out = {}
+    for key, arr in flat.items():
+        site, leaf = key.rsplit("/", 1)
+        if site in sites:
+            dtype = np.int8 if leaf == "kernel_q" else np.float32
+            name = ".".join(site.split("/")[1:] + [leaf])
+            out[name] = torch.from_numpy(np.array(arr, dtype=dtype, order="C"))
+        else:
+            name, t = flax_entry_to_torch(key, arr)
+            out[name] = t
+    return out
 
 
 def flax_key(name: str, ndim: int) -> str:

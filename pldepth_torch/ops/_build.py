@@ -38,6 +38,9 @@ SIGNATURES = {
         "listmle_fwd": (_I, [_P] * 3 + [_I] * 2 + [_P]),
         "listmle_bwd": (_I, [_P] * 4 + [_I] * 2 + [_P]),
     },
+    "quant_matmul": {
+        "quant_matmul": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

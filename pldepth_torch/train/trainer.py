@@ -1,6 +1,7 @@
 """The Trainer (``pldepth_tpu/train/trainer.py``): state init, the train
 step, ``fit``, the eval step, and serving (``predict``, ``predict_fused``,
-the serving-mode policy, ``jit_predict``).
+``predict_bnfold``, ``prepare_quant`` / ``predict_quant``, the serving-mode
+policy, ``jit_predict``).
 
 One train step does, in order, what the JAX step does: images to f32, the
 step's generators keyed by (seed, step), the flip augmentation, on-device
@@ -49,11 +50,6 @@ from pldepth_torch.train.optim import AmsGrad, AmsGradState
 from pldepth_torch.train.schedules import build_schedule
 
 log = logging.getLogger(__name__)
-
-_NOT_PORTED_SERVING = (
-    "serving mode {!r} is not ported yet: ROADMAP.md queue 1 item 10 "
-    "(bn_fold and int8 serving); serve with --fused_encoder true or "
-    "--bn_fold false --quantize ''")
 
 # training options of the JAX package that later slices port
 _NOT_PORTED_OPTIONS = (
@@ -105,6 +101,15 @@ def trainable_params(module: nn.Module) -> List[nn.Parameter]:
     return [p for p in module.parameters() if p.requires_grad]
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantState:
+    """The int8 serving state ``prepare_quant`` returns and ``predict_quant``
+    takes (the JAX package's packed variables): a ``quant="int8"`` model
+    with calibrated activation scales."""
+
+    model: nn.Module
+
+
 class _HostResult:
     """A prediction on its way to host memory. The copy is queued on the
     stream right behind the forward that made it, so the caller can queue the
@@ -140,6 +145,9 @@ class Trainer:
         # (module, input hw) -> encoder plan; the module is kept to check
         # identity, since a plan holds that module's folded weights
         self._plans: Dict[Tuple[int, Tuple[int, int]], Tuple[nn.Module, list]] = {}
+        # module -> its BN-folded twin, and -> (calib model, packed int8 state_dict)
+        self._folded: Dict[int, Tuple[nn.Module, nn.Module]] = {}
+        self._packed: Dict[int, Tuple[nn.Module, Tuple[nn.Module, dict]]] = {}
         self._stop_requested = False
 
     # ------------------------------------------------------------------
@@ -198,7 +206,7 @@ class Trainer:
               rankings: torch.Tensor) -> Tuple[TrainState, StepMetrics]:
         module = state.model
         params = trainable_params(module)
-        self._plans.clear()  # the weights change in place: no plan survives
+        self._clear_serving_caches()  # the weights change in place
         x = normalize_images(images, self.model.preprocess)
         train = TrainPass(gen=self._gen(state, "droppath"))
         for p in params:
@@ -250,15 +258,27 @@ class Trainer:
         pred = state.model(self._images(images))
         return pred[..., 0] if pred.dim() == 4 else pred
 
+    def _clear_serving_caches(self) -> None:
+        for cache in (self._plans, self._folded, self._packed):
+            cache.clear()
+
+    @staticmethod
+    def _cached(cache: dict, module: nn.Module, make: Callable, key=None):
+        """``make()`` once per module (checked by identity: each value holds
+        tensors derived from that module's weights)."""
+        key = id(module) if key is None else key
+        hit = cache.get(key)
+        if hit is None or hit[0] is not module:
+            hit = (module, make())
+            cache[key] = hit
+        return hit[1]
+
     def _plan(self, module: EffNetFullyFledged, hw: Tuple[int, int]) -> list:
         from pldepth_torch.models.fused_infer import plan_encoder
 
-        key = (id(module), hw)
-        hit = self._plans.get(key)
-        if hit is None or hit[0] is not module:
-            hit = (module, plan_encoder(module.encoder, hw, module.dtype))
-            self._plans[key] = hit
-        return hit[1]
+        return self._cached(self._plans, module,
+                            lambda: plan_encoder(module.encoder, hw, module.dtype),
+                            key=(id(module), hw))
 
     @torch.inference_mode()
     def predict_fused(self, state: TrainState, images) -> torch.Tensor:
@@ -277,6 +297,63 @@ class Trainer:
         plans = self._plan(module, tuple(x.shape[1:3]))
         top, taps = encoder_infer(module.encoder, x, plans, dtype=module.dtype)
         pred = module.decoder(top, taps)
+        return pred[..., 0] if pred.dim() == 4 else pred
+
+    def _folded_model(self, module: nn.Module) -> nn.Module:
+        from pldepth_torch.models.bn_fold import fold_module
+
+        def make():
+            folded = self.model.make(bn_fold=True)
+            folded.load_state_dict(fold_module(module), assign=True)
+            return folded.eval()
+
+        return self._cached(self._folded, module, make)
+
+    @torch.inference_mode()
+    def predict_bnfold(self, state: TrainState, images) -> torch.Tensor:
+        """predict() with every batch-norm folded into its conv
+        (models/bn_fold.py): the same values to compute-dtype rounding (f32:
+        within 2e-5). The folded model is made once per state's model."""
+        pred = self._folded_model(state.model)(self._images(images))
+        return pred[..., 0] if pred.dim() == 4 else pred
+
+    def prepare_quant(self, state: TrainState, calib_images) -> QuantState:
+        """Calibrate and pack the int8 serving state (models/quantize.py).
+
+        ``calib_images`` is one image batch or a list of batches in the
+        format ``predict`` takes; activation scales calibrate on them. The
+        weights are BN-folded and quantized once per state's model (cached);
+        each call returns a new state with its own scales, sharing the
+        packed weights."""
+        from pldepth_torch.models.quantize import calibrate, pack_module
+
+        module = state.model
+
+        def make():
+            calib = self.model.make(quant="calib")
+            packed = pack_module(module, calib)
+            calib.load_state_dict(packed, assign=True)
+            return calib.eval(), packed
+
+        calib, packed = self._cached(self._packed, module, make)
+        batches = calib_images if isinstance(calib_images, (list, tuple)) else [calib_images]
+        with torch.no_grad():
+            qsd = calibrate(calib, packed, (self._images(b) for b in batches))
+        qmodel = self.model.make(quant="int8")
+        qmodel.load_state_dict(qsd, assign=True)
+        return QuantState(model=qmodel.eval())
+
+    @torch.inference_mode()
+    def predict_quant(self, qstate: QuantState, images) -> torch.Tensor:
+        """predict() on the int8 serving graph: the stem, every MBConv conv
+        (depthwise with int8 weights and float activations), the top conv and
+        the decoder's 3x3 convs run int8, the dense ones on K4; squeeze-
+        excite, the head and every activation stay float. ``qstate`` comes
+        from ``prepare_quant``."""
+        if not isinstance(qstate, QuantState):
+            raise TypeError("predict_quant takes the QuantState of prepare_quant, "
+                            f"not {type(qstate).__name__}")
+        pred = qstate.model(self._images(images))
         return pred[..., 0] if pred.dim() == 4 else pred
 
     @staticmethod
@@ -305,12 +382,16 @@ class Trainer:
         eagerly. On the card the result is handed back as it is copied to
         host memory, so ``np.asarray`` on it waits for that batch only
         (serve/pipeline.py keeps the next batch queued meanwhile).
-        ``"bn_fold"`` and ``"quant"`` raise NotImplementedError."""
+        ``"quant"`` takes the ``QuantState`` of ``prepare_quant`` in place of
+        the TrainState, as in the JAX package."""
         if fused in self._jit_predict:
             return self._jit_predict[fused]
-        if fused in ("bn_fold", "quant"):
-            raise NotImplementedError(_NOT_PORTED_SERVING.format(fused))
-        fn = self.predict_fused if fused else self.predict
+        if fused == "bn_fold":
+            fn = self.predict_bnfold
+        elif fused == "quant":
+            fn = self.predict_quant
+        else:
+            fn = self.predict_fused if fused else self.predict
 
         def serve(state: TrainState, images):
             pred = fn(state, images)

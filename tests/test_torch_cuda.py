@@ -180,3 +180,82 @@ def test_train_step_on_the_card_runs_k1(cuda_device):
     state, m = trainer.train_step(state, batch)
     assert bool(m.finite) and np.isfinite(float(m.loss))
     assert (k1.listmle_fwd.launches, k1.listmle_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+# K4, the int8 matmul: kernel against its plain version (exact int32 sums in
+# both; f32 out at rtol = atol = 1e-5, tests/test_quantize.py:135's bound,
+# bf16 out within one bf16 ulp), every act, ragged M / N / K, unaligned K.
+K4_CASES = [(96, 256, 136, None), (128, 512, 64, "swish"), (997, 27, 5, None),
+            (1000, 250, 37, "swish"), (129, 70, 70, "relu"), (65, 4, 33, None),
+            (3, 1, 1, "relu"), (6272, 480, 112, None), (1568, 11520, 672, "relu")]
+
+
+def _k4_operands(m, k, n, device, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return (t(rng.integers(-127, 128, (m, k), dtype=np.int8)),
+            t(rng.integers(-127, 128, (k, n), dtype=np.int8)),
+            t((rng.random(n) * 0.01 + 1e-3).astype(np.float32)),
+            t((rng.standard_normal(n) * 0.1).astype(np.float32)), 0.05 / k ** 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,act", K4_CASES)
+def test_k4_matches_plain(m, k, n, act, cuda_device):
+    from pldepth_torch.ops import quant_matmul as k4
+
+    ops = _k4_operands(m, k, n, cuda_device)
+    before = k4.quant_matmul.launches
+    got = k4.quant_matmul(*ops, act=act, out_dtype=torch.float32)
+    gotb = k4.quant_matmul(*ops, act=act).float()
+    torch.cuda.synchronize()
+    assert k4.quant_matmul.launches == before + 2
+    want = k4.quant_matmul_plain(*ops, act=act, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    wantb = k4.quant_matmul_plain(*ops, act=act).float()
+    ulp = torch.exp2(torch.floor(torch.log2(wantb.abs().clamp_min(1e-30))) - 7)
+    assert bool(((gotb - wantb).abs() <= ulp).all())
+    # the exact int32 sums: unit scales, no bias, f32 out (|acc| < 2^24 here)
+    x, w = ops[0], ops[1]
+    ones, zeros = torch.ones(n, device=cuda_device), torch.zeros(n, device=cuda_device)
+    acc = k4.quant_matmul(x, w, ones, zeros, 1.0, out_dtype=torch.float32)
+    ref = (x.cpu().to(torch.int64) @ w.cpu().to(torch.int64)).to(torch.float32)
+    assert torch.equal(acc.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_k4_rejects_and_empty(cuda_device):
+    from pldepth_torch.ops import quant_matmul as k4
+
+    x, w, ws, b, a = _k4_operands(64, 32, 16, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.quant_matmul(x.t().contiguous().t(), w, ws, b, a)
+    with pytest.raises(ValueError, match="is on cpu"):
+        k4.quant_matmul(x, w.cpu(), ws, b, a)
+    with pytest.raises(TypeError, match="int8"):
+        k4.quant_matmul(x.float(), w, ws, b, a)
+    empty = k4.quant_matmul(x[:0], w, ws, b, a)
+    assert empty.shape == (0, 16)
+
+
+@pytest.mark.cuda
+def test_int8_serving_on_the_card_runs_k4_at_every_dense_site(cuda_device):
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.models.quantize import quant_sites
+    from pldepth_torch.ops import quant_matmul as k4
+    from pldepth_torch.train import Trainer
+
+    cfg = ExperimentConfig(model_name="ff_smoke", input_size=64)
+    trainer = Trainer(cfg)
+    state = trainer.init_state()
+    imgs = np.random.default_rng(1).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    qstate = trainer.prepare_quant(state, imgs)
+    dense = sum(m.groups == 1 for m in quant_sites(qstate.model).values())
+    before = k4.quant_matmul.launches
+    q = trainer.predict_quant(qstate, imgs).float()
+    assert k4.quant_matmul.launches - before == dense
+    b = trainer.predict_bnfold(state, imgs).float()
+    assert torch.isfinite(q).all()
+    rel = float((q - b).abs().max() / b.abs().max())
+    r = float(np.corrcoef(q.cpu().numpy().ravel(), b.cpu().numpy().ravel())[0, 1])
+    assert rel < 0.15 and r > 0.98, (rel, r)

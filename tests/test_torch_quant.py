@@ -1,0 +1,470 @@
+"""BN-folded and int8 serving of the port on the CPU against the JAX package:
+ff_smoke at 64^2, weights and int8 parameters made by the JAX package and
+carried across, BN statistics perturbed as tests/test_bn_fold.py does.
+
+* K4's plain version (the CPU route of ``ops/quant_matmul.quant_matmul``)
+  against the TPU kernel in interpret mode, f32 out at rtol = atol = 1e-5
+  (tests/test_quantize.py:135), bf16 out within one bf16 ulp; ragged M, N
+  and K against a numpy int64 product.
+* Every dense int8 site: given the same bf16 input, the port's int8 ``q``
+  equals the JAX graph's bitwise, and its int32 accumulator (im2col + plain
+  K4, unit scales) equals ``lax.conv_general_dilated(q, kernel_q,
+  preferred_element_type=int32)`` exactly.
+* Packing: ``kernel_q`` bitwise, ``w_scale`` / ``bias`` to 1e-7, every
+  calibrated ``a_scale`` within rel 1e-5 of JAX's in f32 and 2e-2 in bf16
+  (see ``A_SCALE_REL``).
+* Whole graphs: the port's ``predict_quant`` on the carried-across JAX
+  parameters against JAX ``predict_quant``: in bf16 rel <= 6e-2, pearson
+  >= 0.995 (the dequant epilogue is f32 here and bf16 in the JAX default
+  graph); in f32, where both epilogues are f32, rel <= 1e-5;
+  int8 against bn_fold (rel < 0.15, pearson > 0.98, tests/test_quantize.py);
+  ``predict_bnfold`` in f32 against JAX's and against ``predict`` (rel <
+  2e-5, tests/test_bn_fold.py).
+* ``cli predict`` with its default flags (int8) and with ``--quantize ''``
+  against the JAX command, and ``cli serve --once`` with the daemon's
+  pickup, skip and quarantine rules.
+"""
+
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+from PIL import Image
+
+from pldepth_torch.core.config import ExperimentConfig
+from pldepth_torch.models import get_pl_depth_net
+from pldepth_torch.models.pretrained import load_flat, quant_state_dict_from_flax
+from pldepth_torch.models.quantize import (
+    quant_sites,
+    quantize_activation,
+    quantize_variables,
+)
+from pldepth_torch.ops.quant_conv import im2col_same
+from pldepth_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
+from pldepth_torch.serve.daemon import serve_directory
+from pldepth_torch.train import Trainer
+from pldepth_torch.train.trainer import QuantState
+from pldepth_tpu.core.config import ExperimentConfig as JConfig
+from pldepth_tpu.core.mesh import make_mesh
+from pldepth_tpu.ops.quant_matmul import quant_matmul as j_quant_matmul
+from pldepth_tpu.train import Trainer as JTrainer
+from pldepth_tpu.train.checkpoint import save_weights_npz
+
+torch.set_num_threads(1)
+SIZE, BATCH = 64, 4
+QUANT_REL, QUANT_R = 0.15, 0.98  # int8 vs bn_fold, tests/test_quantize.py:52-53
+# port int8 on the JAX int8 parameters vs JAX predict_quant, (rel, pearson).
+# bf16: the port's dequant epilogue is f32 (the TPU kernel's), the JAX
+# default graph's is bf16; measured rel 4.25e-2, pearson 0.99884 here (the
+# two JAX epilogues alone differ by rel 3.13e-2). f32: measured rel 2.9e-7.
+JAX_QUANT = {"bfloat16": (6e-2, 0.995), "float32": (1e-5, 0.99999)}
+# calibrated a_scale, port vs JAX. f32: measured 2.2e-7. bf16: measured up
+# to 1.19e-2 (4 of 20 sites above 7e-3): the calibration forwards round
+# differently, since XLA keeps excess precision between fused bf16 ops (the
+# JAX amax at stage2_block0.project_conv, 1.48242, is no bf16 value; the
+# port's is 1.5), so the bound there is about three bf16 ulps
+A_SCALE_REL = {"bfloat16": 2e-2, "float32": 1e-5}
+DTYPES = ["bfloat16", "float32"]
+FOLD_REL = 2e-5  # f32 bn_fold vs predict, tests/test_bn_fold.py
+BF16_REL = 0.03  # bf16 serving bound of tests/test_torch_slice.py
+
+DENSE_SITES = [name for name, m in quant_sites(
+    get_pl_depth_net("ff_smoke", "bfloat16").make(quant="int8")).items() if m.groups == 1]
+
+
+def _flat(tree):
+    return {"/".join(str(getattr(p, "key", p)) for p in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _nontrivial(tree):
+    # tests/test_bn_fold.py:18-27: init stats (mean 0, var 1) would hide
+    # scale and offset faults of the fold
+    return jax.tree.map(
+        lambda v: v + (0.05 * jnp.arange(v.size, dtype=v.dtype).reshape(v.shape)) % 0.3
+        if v.ndim == 1 else v, tree)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def _pearson(a, b):
+    return float(np.corrcoef(np.ravel(a), np.ravel(b))[0, 1])
+
+
+def _jtrainer(dt="bfloat16"):
+    cfg = JConfig(model_name="ff_smoke", input_size=SIZE, batch_size=BATCH, compute_dtype=dt)
+    return JTrainer(cfg, steps_per_epoch=1, mesh=make_mesh(devices=jax.devices()[:1]))
+
+
+def _port(flat, dt="bfloat16"):
+    cfg = ExperimentConfig(model_name="ff_smoke", input_size=SIZE, compute_dtype=dt)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    loaded, skipped = load_flat(state.model, flat)
+    assert skipped == 0 and loaded == len(state.model.state_dict())
+    return trainer, state
+
+
+def _carried_qstate(trainer, qflat):
+    """The JAX int8 parameters in the port's quant model."""
+    model = trainer.model.make(quant="int8")
+    sd = quant_state_dict_from_flax(qflat)
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, assign=True)
+    return QuantState(model=model.eval())
+
+
+def _reference(dt, jstate=None):
+    """One JAX prepare_quant in compute dtype ``dt``, its prediction and
+    the port's counterparts on the same weights."""
+    images = np.random.default_rng(0).uniform(size=(BATCH, SIZE, SIZE, 3)).astype(np.float32)
+    jtr = _jtrainer(dt)
+    if jstate is None:
+        jstate = jtr.init_state()
+        jstate = jstate.replace(batch_stats=_nontrivial(jstate.batch_stats))
+    qvars = jtr.prepare_quant(jstate, images)
+    flat = _flat({"params": jstate.params, "batch_stats": jstate.batch_stats})
+    qflat = _flat({"params": qvars["params"]})
+    trainer, pstate = _port(flat, dt)
+    return dict(
+        images=images, jtrainer=jtr, jstate=jstate, flat=flat, qflat=qflat,
+        j_quant=np.asarray(jax.jit(jtr.predict_quant)(qvars, images), np.float32),
+        trainer=trainer, state=pstate, carried=_carried_qstate(trainer, qflat),
+        own=trainer.prepare_quant(pstate, images),
+    )
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return _reference("bfloat16")
+
+
+@pytest.fixture(scope="module")
+def ref32(ref):
+    return _reference("float32", ref["jstate"])
+
+
+@pytest.fixture
+def refs(request):
+    return lambda dt: request.getfixturevalue("ref" if dt == "bfloat16" else "ref32")
+
+
+@pytest.fixture(scope="module")
+def site_inputs(ref):
+    """The bf16 input of every dense site in the port's int8 forward on the
+    carried-across parameters."""
+    seen, hooks = {}, []
+    for name, mod in quant_sites(ref["carried"].model).items():
+        if mod.groups == 1:
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args, name=name: seen.setdefault(name, args[0].detach().clone())))
+    ref["trainer"].predict_quant(ref["carried"], ref["images"])
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+# --------------------------------------------------------------------- K4 --
+
+def _k4_operands(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-127, 128, (m, k)).astype(np.int8),
+            rng.integers(-127, 128, (k, n)).astype(np.int8),
+            (rng.random(n) * 0.01 + 1e-3).astype(np.float32),
+            (rng.standard_normal(n) * 0.01).astype(np.float32), np.float32(0.05))
+
+
+def _within_bf16_ulp(got, want):
+    want = np.asarray(want, np.float64)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    return bool((np.abs(np.asarray(got, np.float64) - want) <= ulp).all())
+
+
+@pytest.mark.parametrize("shape", [(96, 256, 136), (128, 512, 64)])
+@pytest.mark.parametrize("act", [None, "swish", "relu"])
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_plain_k4_matches_the_tpu_kernel(shape, act, dt):
+    x, w, ws, b, a = _k4_operands(*shape)
+    want = np.asarray(j_quant_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(ws),
+                                     jnp.asarray(b), a, act=act, out_dtype=jnp.dtype(dt),
+                                     interpret=True), np.float32)
+    t = torch.from_numpy
+    got = quant_matmul(t(x), t(w), t(ws), t(b), float(a), act=act,
+                       out_dtype=getattr(torch, dt)).float().numpy()
+    if dt == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _within_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(97, 27, 5), (1, 1, 1), (130, 70, 33), (65, 250, 129)])
+@pytest.mark.parametrize("act", [None, "swish"])
+def test_plain_k4_ragged_against_int64(m, k, n, act):
+    x, w, ws, b, a = _k4_operands(m, k, n, seed=m + k + n)
+    acc = x.astype(np.int64) @ w.astype(np.int64)
+    want = acc.astype(np.float32) * (ws * a) + b
+    if act == "swish":
+        with np.errstate(over="ignore"):  # exp(-y) = inf for very negative y: swish 0
+            want = want / (1.0 + np.exp(-want))
+    t = torch.from_numpy
+    got = quant_matmul(t(x), t(w), t(ws), t(b), float(a), act=act, out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    unit = quant_matmul_plain(t(x), t(w), torch.ones(n), torch.zeros(n), 1.0,
+                              out_dtype=torch.float32)
+    np.testing.assert_array_equal(unit.numpy(), acc.astype(np.float32))
+
+
+def test_k4_refuses_bad_operands():
+    x, w, ws, b = (torch.from_numpy(v) for v in _k4_operands(8, 4, 3)[:4])
+    a = 0.1
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul(x.float(), w, ws, b, a)
+    with pytest.raises(ValueError, match="must be"):
+        quant_matmul(x, w[:3], ws, b, a)
+    with pytest.raises(ValueError, match="act"):
+        quant_matmul(x, w, ws, b, a, act="gelu")
+
+
+# ------------------------------------------------------------- per site --
+
+def _site(ref, name):
+    mod = quant_sites(ref["carried"].model)[name]
+    kh, kw, cin, cout = mod.kernel_q.shape
+    return mod, kh, cin, cout
+
+
+@pytest.mark.parametrize("name", DENSE_SITES)
+def test_site_q_and_int32_accumulator_exact(ref, site_inputs, name):
+    mod, k, cin, cout = _site(ref, name)
+    x = site_inputs[name]
+    assert x.dtype == torch.bfloat16
+    _, inv, _ = mod.derived()
+    q = quantize_activation(x, inv)
+
+    @jax.jit
+    def j_q(x, a_scale):  # pldepth_tpu/models/quantize.py:109, :140-142
+        inv = (1.0 / a_scale).astype(jnp.bfloat16)
+        return jnp.clip(jnp.round(x.astype(jnp.bfloat16) * inv), -127, 127).astype(jnp.int8)
+
+    jq = np.asarray(j_q(jnp.asarray(x.float().numpy()), jnp.float32(mod.a_scale.item())))
+    np.testing.assert_array_equal(q.numpy(), jq)
+
+    kernel_q = mod.kernel_q.numpy()
+    j_acc = np.asarray(lax.conv_general_dilated(
+        jnp.asarray(jq), jnp.asarray(kernel_q), (mod.stride, mod.stride), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32))
+    cols = im2col_same(q, k, mod.stride)
+    w = mod.kernel_q.reshape(k * k * cin, cout)
+    acc = (cols.to(torch.int64) @ w.to(torch.int64)).reshape(j_acc.shape)
+    np.testing.assert_array_equal(acc.numpy(), j_acc)
+    unit = quant_matmul(cols.contiguous(), w.contiguous(), torch.ones(cout), torch.zeros(cout),
+                        1.0, out_dtype=torch.float32).reshape(j_acc.shape)
+    np.testing.assert_array_equal(unit.numpy(), j_acc.astype(np.float32))
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_packing_matches_jax(refs, dt):
+    ref = refs(dt)
+    own = ref["own"].model.state_dict()
+    qflat = ref["qflat"]
+    n_kernel = n_scale = 0
+    for key, want in qflat.items():
+        site, leaf = key.rsplit("/", 1)
+        if leaf not in ("kernel_q", "w_scale", "bias", "a_scale") or \
+                f"{site}/kernel_q" not in qflat:
+            continue
+        got = own[".".join(site.split("/")[1:] + [leaf])].numpy()
+        if leaf == "kernel_q":
+            n_kernel += 1
+            assert got.dtype == np.int8 and np.abs(got.astype(np.int32)).max() <= 127
+            np.testing.assert_array_equal(got, want)
+        elif leaf == "a_scale":
+            n_scale += 1
+            assert float(got) > 0 and float(got) != 1.0
+            assert abs(float(got) / float(want) - 1) <= A_SCALE_REL[dt], (site, got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-7, atol=1e-7)
+    assert n_kernel == n_scale >= 15
+    assert n_kernel == len(quant_sites(ref["own"].model))
+
+
+# ---------------------------------------------------------- whole graphs --
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_port_quant_on_jax_parameters_matches_jax(refs, dt):
+    ref = refs(dt)
+    got = ref["trainer"].predict_quant(ref["carried"], ref["images"]).float().numpy()
+    want = ref["j_quant"]
+    assert got.shape == want.shape == (BATCH, SIZE, SIZE) and np.isfinite(got).all()
+    rel, r = _rel(got, want), _pearson(got, want)
+    assert rel <= JAX_QUANT[dt][0] and r >= JAX_QUANT[dt][1], (rel, r)
+
+
+@pytest.mark.parametrize("dt", DTYPES)
+def test_port_quant_tracks_port_bnfold(refs, dt):
+    ref = refs(dt)
+    tr = ref["trainer"]
+    q = tr.predict_quant(ref["own"], ref["images"]).float().numpy()
+    b = tr.predict_bnfold(ref["state"], ref["images"]).float().numpy()
+    assert np.isfinite(q).all()
+    rel, r = _rel(q, b), _pearson(q, b)
+    assert rel < QUANT_REL and r > QUANT_R, (rel, r)
+
+
+def test_bnfold_f32_matches_jax_and_predict(ref32):
+    ref = ref32
+    want = np.asarray(jax.jit(ref["jtrainer"].predict_bnfold)(ref["jstate"], ref["images"]),
+                      np.float32)
+    tr, state = ref["trainer"], ref["state"]
+    got = tr.predict_bnfold(state, ref["images"]).numpy()
+    plain = tr.predict(state, ref["images"]).numpy()
+    assert _rel(got, want) < FOLD_REL
+    assert _rel(got, plain) < FOLD_REL
+
+
+def test_fold_refuses_train_mode_and_missing_stats(ref):
+    from pldepth_torch.models.bn_fold import fold_state_dict
+    from pldepth_torch.models.layers import TrainPass
+
+    with pytest.raises(ValueError, match="running statistics"):
+        fold_state_dict({"a.conv.weight": torch.ones(1, 1, 1, 1)}, {})
+    folded = ref["trainer"].model.make(bn_fold=True)
+    x = torch.zeros(1, SIZE, SIZE, 3)
+    with pytest.raises(ValueError, match="inference-only"):
+        folded(x, TrainPass(gen=torch.Generator()))
+
+
+def test_prepare_quant_caches_the_pack_and_keeps_values(ref):
+    tr, state = ref["trainer"], ref["state"]
+    again = tr.prepare_quant(state, ref["images"])
+    first, second = ref["own"].model.state_dict(), again.model.state_dict()
+    assert set(first) == set(second)
+    for k in first:
+        assert torch.equal(first[k], second[k]), k
+    assert len(tr._packed) == 1 and len(tr._folded) == 1
+    # the module-level flow computes the same state
+    calib = tr.model.make(quant="calib")
+    images = tr._images(ref["images"])
+    whole = quantize_variables(state.model, calib, [images])
+    assert set(whole) == set(first)
+    for k in first:
+        assert torch.equal(whole[k], first[k]), k
+
+
+def test_predict_quant_refuses_a_train_state(ref):
+    with pytest.raises(TypeError, match="QuantState"):
+        ref["trainer"].predict_quant(ref["state"], ref["images"])
+
+
+# -------------------------------------------------------------- commands --
+
+def _put_images(d, names, size):
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(len(names))
+    for n in names:
+        Image.fromarray(rng.integers(0, 256, (size, size + 8, 3), np.uint8)).save(
+            os.path.join(d, n))
+
+
+@pytest.fixture(scope="module")
+def weights(ref, tmp_path_factory):
+    root = tmp_path_factory.mktemp("quant_cli")
+    path = str(root / "weights.npz")
+    save_weights_npz(path, ref["jstate"])
+    imgs = str(root / "imgs")
+    _put_images(imgs, [f"im{i}.png" for i in range(3)], SIZE)
+    return root, path, imgs
+
+
+def _port_cli(*argv):
+    from pldepth_torch.cli import main
+
+    assert main(list(argv) + ["--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("quantize", ["default", ""])
+def test_cli_predict_default_and_bnfold_match_jax(weights, quantize):
+    from click.testing import CliRunner
+
+    from pldepth_tpu.cli import cli
+
+    root, path, imgs = weights
+    flags = [] if quantize == "default" else ["--quantize", ""]
+    common = ["--model_name", "ff_smoke", "--input_size", str(SIZE), "--batch_size", "2",
+              "--load_model_path", path, "--inputs", imgs, "--save_png", "false"] + flags
+    jout, pout = str(root / f"j{quantize}"), str(root / f"p{quantize}")
+    res = CliRunner().invoke(cli, ["predict", *common, "--out_dir", jout],
+                             catch_exceptions=False)
+    assert res.exit_code == 0, res.output
+    _port_cli("predict", *common, "--out_dir", pout)
+    for i in range(3):
+        got = np.load(os.path.join(pout, f"im{i}_depth.npy"))
+        want = np.load(os.path.join(jout, f"im{i}_depth.npy"))
+        assert got.shape == (SIZE, SIZE) and np.isfinite(got).all()
+        rel, r = _rel(got, want), _pearson(got, want)
+        if quantize == "default":
+            assert rel < QUANT_REL and r > QUANT_R, (i, rel, r)
+        else:
+            assert rel <= BF16_REL, (i, rel)
+
+
+def test_cli_serve_once_serves_backlog_and_quarantines(weights, capsys):
+    root, path, _ = weights
+    watch, out = str(root / "watch"), str(root / "served")
+    _put_images(watch, ["x.png", "y.png", "z.png"], SIZE)
+    with open(os.path.join(watch, "bad.png"), "wb") as f:
+        f.write(b"not a png at all")
+    capsys.readouterr()
+    _port_cli("serve", "--model_name", "ff_smoke", "--input_size", str(SIZE),
+              "--batch_size", "3", "--load_model_path", path, "--watch_dir", watch,
+              "--out_dir", out, "--once", "true", "--poll_interval", "0.01")
+    payload = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert payload == {"processed": 3, "out_dir": out}
+    assert sorted(os.listdir(out)) == ["x_depth.npy", "y_depth.npy", "z_depth.npy"]
+    d = np.load(os.path.join(out, "x_depth.npy"))
+    assert d.shape == (SIZE, SIZE) and np.isfinite(d).all()
+
+
+def test_cli_serve_artifact_names_its_roadmap_item(weights):
+    root, _, _ = weights
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+        _port_cli("serve", "--artifact", str(root / "model.plx"), "--watch_dir",
+                  str(root / "w2"), "--out_dir", str(root / "o2"))
+
+
+def _mean_infer(imgs):
+    return np.asarray(imgs, np.float32).mean(axis=-1)
+
+
+def test_daemon_backlog_then_only_new_files(tmp_path):
+    watch, out = str(tmp_path / "in"), str(tmp_path / "out")
+    _put_images(watch, [f"a{i}.png" for i in range(5)], 8)
+    assert serve_directory(watch, out, _mean_infer, 8, 2, once=True, poll_interval=0.01) == 5
+    assert sorted(os.listdir(out)) == [f"a{i}_depth.npy" for i in range(5)]
+    _put_images(watch, ["c.png"], 8)
+    assert serve_directory(watch, out, _mean_infer, 8, 2, once=True, poll_interval=0.01) == 1
+
+
+def test_daemon_waits_for_a_stable_size(tmp_path):
+    watch, out = str(tmp_path / "in"), str(tmp_path / "out")
+    _put_images(watch, ["a.png"], 8)
+    assert serve_directory(watch, out, _mean_infer, 8, 2, max_polls=1, poll_interval=0.01) == 0
+    assert not os.listdir(out)
+    assert serve_directory(watch, out, _mean_infer, 8, 2, max_polls=2, poll_interval=0.01) == 1
+
+
+def test_daemon_quarantines_a_poison_file(tmp_path):
+    watch, out = str(tmp_path / "in"), str(tmp_path / "out")
+    _put_images(watch, ["a.png", "c.png"], 8)
+    with open(os.path.join(watch, "b.png"), "wb") as f:
+        f.write(b"not a png at all")
+    assert serve_directory(watch, out, _mean_infer, 8, 4, once=True, poll_interval=0.01) == 2
+    assert sorted(os.listdir(out)) == ["a_depth.npy", "c_depth.npy"]

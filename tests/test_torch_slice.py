@@ -145,14 +145,22 @@ def test_serving_mode_matches_jax(fused, bn_fold, quantize):
 
 
 def test_jit_predict_memoised_and_unported_modes_raise(ref):
+    """jit_predict is memoised per mode, and every serving mode serves: the
+    fused encoder, bn_fold and quant (on the QuantState of prepare_quant)."""
     trainer, state = port("float32", ref["float32"]["flat"])
+    images = ref["images"]
     fn = trainer.jit_predict(fused=True)
     assert trainer.jit_predict(fused=True) is fn
-    np.testing.assert_allclose(np.asarray(fn(state, ref["images"])),
-                               trainer.predict_fused(state, ref["images"]).numpy())
-    for mode in ("bn_fold", "quant"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-            trainer.jit_predict(fused=mode)
+    np.testing.assert_allclose(np.asarray(fn(state, images)),
+                               trainer.predict_fused(state, images).numpy())
+    qstate = trainer.prepare_quant(state, images)
+    for mode, arg, direct in (("bn_fold", state, trainer.predict_bnfold),
+                              ("quant", qstate, trainer.predict_quant)):
+        fn = trainer.jit_predict(fused=mode)
+        assert trainer.jit_predict(fused=mode) is fn
+        got = np.asarray(fn(arg, images))
+        assert got.shape == (2, SIZE, SIZE) and np.isfinite(got).all()
+        np.testing.assert_array_equal(got, direct(arg, images).numpy())
 
 
 def test_checkpoints_cross_both_ways(ref, tmp_path):
