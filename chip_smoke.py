@@ -20,7 +20,8 @@ Phases (any failure exits non-zero):
      predict_fused and the device's idle share;
   5. K1 (the sorted ListMLE NLL, forward and backward) against its plain
      PyTorch version in f32 at K in {3, 5, 25, 128, 500} x N in {1, 257,
-     3200}, and on a list whose scores spread by more than 87;
+     3200}, at every (N, K) the training phases give it (read from their
+     configs), and on a list whose scores spread by more than 87;
   6. the training slice: configs/ff_effnet_448.json at batch 32 (448^2,
      K=5, RPI=100, info_score, frozen encoder, bf16) on a seeded synthetic
      448^2 set through Trainer.fit, 20 steps with validation: finite
@@ -49,7 +50,31 @@ Phases (any failure exits non-zero):
      predict and predict_fused (alternating rounds), the calibration time,
      K4 per site beside its plain version, its bound and torch._int_mm
      plus a torch epilogue, totals per forward, and a profiler breakdown of
-     predict_quant with the device's idle share.
+     predict_quant with the device's idle share;
+ 10. K3 (the banded MBConv) at the four B0 stage-2/3 blocks at 448^2, batch
+     8, whole blocks: against its plain version (the band algorithm) and
+     against K2 on the same inputs, bf16 and f32, at the default band and a
+     smaller divisor, one launch per call; the path run (the four blocks,
+     counts from 0); then per block K3's device time per pass beside the
+     plain passes' and the bound, and per call beside K2's (profiler
+     windows that hold every kernel);
+ 11. ff_redweb training: configs/ff_redweb_448.json (448^2, batch 4, K=5,
+     RPI=100, thresholded sampling, SGDR, frozen encoder, bf16) through
+     Trainer.fit on a seeded synthetic set with phase 6's gates; ms per
+     step at batch 4 and 32 with peak memory, idle share and top kernels;
+ 12. ff_redweb serving: seeded synth_weight weights with randomised BN
+     statistics, 4 batches of 8 at 448^2 through run_pipeline in the
+     default mode (bn_fold): 32 finite maps; predict_bnfold and predict in
+     bf16 each against the f32 graph (rel <= 3e-2, at two seeds of BN
+     statistics; their distance and a wrong-eps fold's recorded),
+     predict_bnfold vs predict in f32 at 96^2 (rel <= 2e-5, and a wrong-eps
+     fold must fail it); the f32 model against the TF
+     golden at 96^2 (infer rel < 5e-5, train rel < 5e-4); --quantize int8:
+     K4 against its plain version at every ff_redweb site shape, 4 int8
+     batches through run_pipeline with 96 K4 launches per forward, the K4
+     route vs the plain route (rel <= 1e-2), quant vs bn_fold recorded;
+     ms per batch of predict_bnfold, predict and predict_quant, served
+     images/s, and the idle share of predict_bnfold.
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -58,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -76,9 +102,13 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # max|ref| at K=500, 1.1e-6 at K<=25); max|d| <= K1_ATOL + K1_RTOL * max|ref|
 K1_RTOL, K1_ATOL = 3e-5, 1e-5
 K1_SHAPES = [(n, k) for k in (3, 5, 25, 128, 500) for n in (1, 257, 3200)]
+EFFNET_CONFIG, REDWEB_CONFIG = "ff_effnet_448.json", "ff_redweb_448.json"
 BATCH_TRAIN, N_TRAIN, N_VAL, EPOCHS = 32, 64, 32, 10  # 2 steps + 1 val batch per epoch
 K4_TOL = 1e-5  # f32 out: rtol = atol (tests/test_quantize.py:135)
 K4_SITES = 38  # dense int8 sites of one ff_effnet forward
+K4_SITES_REDWEB = 96  # of one ff_redweb forward: 53 encoder, 43 decoder
+SPIN_KERNELS = 8  # opening each profiler window (kernel_window)
+K3_BLOCKS = ("stage2_block0", "stage2_block1", "stage3_block0", "stage3_block1")
 # K4 with an activation, and ragged M (not a multiple of 64), N (not of 16)
 # and K (not of 4 or of 64): (M, K, N, act)
 K4_EXTRA = [(6272, 480, 112, "swish"), (25088, 240, 40, "relu"), (997, 27, 5, None),
@@ -191,9 +221,33 @@ def bound_ms(nbytes: float, ops: float, peak: float):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def load_config(name: str):
+    """An ExperimentConfig from configs/ beside this script."""
+    from pldepth_torch.core.config import ExperimentConfig
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "configs", name)) as f:
+        return ExperimentConfig.from_json(f.read())
+
+
+def k1_path_shapes():
+    """(N, K) of the K1 calls of the training phases: batch x rankings per
+    image (train steps) and batch x val rankings per image (validation), for
+    phase 6 (ff_effnet at BATCH_TRAIN) and phase 11 (ff_redweb at its
+    config's batch through fit, and at BATCH_TRAIN in its timed steps)."""
+    shapes = set()
+    for config, batches in ((EFFNET_CONFIG, (BATCH_TRAIN,)), (REDWEB_CONFIG, (None, BATCH_TRAIN))):
+        cfg = load_config(config)
+        for b in batches:
+            b = b or cfg.batch_size
+            shapes |= {(b * r, cfg.ranking_size) for r in (cfg.rankings_per_image, cfg.val_rpi)}
+    return sorted(shapes)
+
+
 def check_k1(device="cuda"):
-    """Phase 5: K1 against its plain version at every listed (N, K) and on
-    the spread > 87 list. Returns (checks, max|d| forward, max|d| backward)."""
+    """Phase 5: K1 against its plain version at every listed (N, K), at
+    every training phase's (N, K), and on the spread > 87 list. Returns
+    (checks, max|d| forward, max|d| backward)."""
     import numpy as np
     import torch
 
@@ -223,7 +277,7 @@ def check_k1(device="cuda"):
         return row, nll, ds
 
     checks = []
-    for n, k in K1_SHAPES:
+    for n, k in K1_SHAPES + [s for s in k1_path_shapes() if s not in K1_SHAPES]:
         rng = np.random.default_rng(1000 * k + n)
         s = torch.from_numpy((rng.normal(size=(n, k)) * 3).astype(np.float32)).to(device)
         g = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).to(device)
@@ -237,25 +291,34 @@ def check_k1(device="cuda"):
             max(c["ds"]["max_abs_err"] for c in checks))
 
 
-def train_phase(model_name="ff_effnet", size=SIZE, batch=BATCH_TRAIN, n_train=N_TRAIN,
-                n_val=N_VAL, epochs=EPOCHS, device="cuda"):
-    """Phase 6: the training slice through Trainer.fit. Returns (trainer,
-    state, cfg, record)."""
+def train_phase(config: str, size=SIZE, batch=None, n_train=N_TRAIN, n_val=N_VAL,
+                epochs=EPOCHS, device="cuda"):
+    """Phases 6 and 11: a training config of configs/ through Trainer.fit
+    on a seeded synthetic set, at ``batch`` (None: the config's). Returns
+    (trainer, state, cfg, record).
+
+    The fixed-rankings probe loss is the inference forward's, except for a
+    model with caffe preprocessing (ff_redweb): its encoder BNs see
+    caffe-scale inputs (variance ~1e3 at the stem) and their running
+    statistics move 1% a step (momentum 0.99), so after a few dozen steps
+    the running-statistics forward is still far from the trained one; its
+    probe runs the train-mode forward (batch statistics, nothing
+    committed)."""
     import numpy as np
     import torch
 
-    from pldepth_torch.core.config import ExperimentConfig
     from pldepth_torch.data.datasets import SyntheticDepthDataset
     from pldepth_torch.data.pipeline import BatchIterator, pregenerate_val_rankings, val_batches
-    from pldepth_torch.models.layers import BatchNorm
+    from pldepth_torch.data.preprocess import normalize_images
+    from pldepth_torch.models.layers import BatchNorm, TrainPass
     from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.ops.listmle import pl_ranking_loss
     from pldepth_torch.train import Trainer
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, "configs", "ff_effnet_448.json")) as f:
-        cfg = ExperimentConfig.from_json(f.read())
-    cfg = cfg.replace(model_name=model_name, input_size=size, batch_size=batch, epochs=epochs,
-                      dataset="synthetic")
+    cfg = load_config(config)
+    batch = batch or cfg.batch_size
+    cfg = cfg.replace(input_size=size, batch_size=batch, epochs=epochs, dataset="synthetic")
+    model_name = cfg.model_name
     t0 = time.time()
     train_ds = SyntheticDepthDataset(n_train, size, seed=0).cached()
     val_ds = SyntheticDepthDataset(n_val, size, seed=1).cached()
@@ -269,7 +332,19 @@ def train_phase(model_name="ff_effnet", size=SIZE, batch=BATCH_TRAIN, n_train=N_
     # a batch the run trains on every epoch, with fixed rankings
     probe = {"image": np.stack([train_ds[i]["image"] for i in range(batch)]),
              "rankings": pregenerate_val_rankings(train_ds.take(batch), **rk)}
-    probe_before = float(trainer.eval_step(state, probe))
+    probe_batch_stats = trainer.model.preprocess == "caffe"
+
+    def probe_loss(st):
+        if not probe_batch_stats:
+            return float(trainer.eval_step(st, probe))
+        with torch.no_grad():
+            x = normalize_images(torch.as_tensor(probe["image"]).to(device),
+                                 trainer.model.preprocess)
+            pred = st.model(x, TrainPass())
+            return float(pl_ranking_loss(pred, torch.as_tensor(probe["rankings"]).to(device),
+                                         impl=cfg.listmle_impl))
+
+    probe_before = probe_loss(state)
     setup_s = time.time() - t0
 
     model = state.model
@@ -291,13 +366,14 @@ def train_phase(model_name="ff_effnet", size=SIZE, batch=BATCH_TRAIN, n_train=N_
     it.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
     n_steps = state.step
-    probe_after = float(trainer.eval_step(state, probe))
+    probe_after = probe_loss(state)
 
     losses = history["loss"] + history["val_loss"]
     log(f"fit: {n_steps} steps of {model_name} {size}^2 batch {batch} in {fit_s:.2f} s; "
         f"epoch losses {[round(x, 4) for x in history['loss']]}; val "
         f"{[round(x, 4) for x in history['val_loss']]}; fixed-rankings loss of a trained batch "
-        f"{probe_before:.4f} -> {probe_after:.4f}; K1 launches {launches}")
+        f"{probe_before:.4f} -> {probe_after:.4f} ({'batch' if probe_batch_stats else 'running'} "
+        f"statistics); K1 launches {launches}")
     if n_steps != epochs * steps_per_epoch or not np.all(np.isfinite(losses)):
         fail(f"training did not run {epochs * steps_per_epoch} finite steps: {history}")
     want_fwd = n_steps + epochs * n_val_batches
@@ -333,8 +409,6 @@ def train_times(trainer, state, cfg, smi: str, device="cuda"):
     top kernels by device time."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from pldepth_torch.data.datasets import SyntheticDepthDataset
     from pldepth_torch.train import Trainer
@@ -350,41 +424,31 @@ def train_times(trainer, state, cfg, smi: str, device="cuda"):
             box[0], _m = tr.train_step(box[0], batch)
 
     samples = {"k1": [], "plain": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for r in range(6):
         for name in (("k1", "plain") if r % 2 == 0 else ("plain", "k1")):
             tr = trainer if name == "k1" else plain
             samples[name].append(cuda_ms(lambda: steps(tr, 1), reps=5, warmup=1))
     step_ms = {k: float(np.median(v)) for k, v in samples.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for k, v in samples.items():
         log(f"train step ({k} loss): {step_ms[k]:.3f} ms per step of {cfg.batch_size} at "
             f"{cfg.input_size}^2 (median of {len(v)} rounds of 5, min {min(v):.3f}, "
             f"max {max(v):.3f}) [{smi}]")
 
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        steps(trainer, n_prof)
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=20)
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_prof) for e in events
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                     key=lambda kv: -kv[1])
-    busy_ms = sum(ms for _, ms in kernels)
-    idle = 1 - busy_ms / step_ms["k1"]
-    log(table)
-    log(f"profiled train step x{n_prof}: device busy {busy_ms:.3f} ms per step; unprofiled "
-        f"step {step_ms['k1']:.3f} ms -> idle share {idle:.3f} [{smi}]")
-    for name, ms in kernels[:10]:
-        log(f"  top kernel {ms:9.3f} ms/step  {name[:110]}")
-    return {"step_ms": step_ms, "step_ms_samples": samples, "profile_table": table,
-            "device_busy_ms": busy_ms, "idle_share": idle,
-            "top_kernels": [{"name": n, "ms_per_step": ms} for n, ms in kernels[:15]]}
+    prof = profile_idle(lambda: steps(trainer, 1), 3, step_ms["k1"], smi, "train step")
+    log(f"peak device memory over the timed steps: {peak_gb:.2f} GB [{smi}]")
+    return {"step_ms": step_ms, "step_ms_samples": samples, "peak_mem_gb": peak_gb,
+            "profile": prof}
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn``: the sum of its kernels' durations in
-    a profiler window of ``reps`` calls (host launch gaps excluded)."""
+def kernel_window(fn, reps: int):
+    """One profiler window of ``reps`` calls of ``fn``, after one call
+    outside it: (the profiler's key_averages, {kernel name: device ms per
+    call} (host launch gaps excluded), kernels launched in the window).
+    The window opens with a few spin kernels, left out of the result: the
+    first launches of a window can go missing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -392,11 +456,126 @@ def device_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(SPIN_KERNELS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and "spin_kernel" not in e.key]
+    return (averages, {e.key: e.self_device_time_total / 1e3 / reps for e in events},
+            sum(e.count for e in events))
+
+
+def full_windows(fn, reps: int, what: str, per_call=None, n=None, tries: int = 6):
+    """{kernel name: device ms per call} of ``n`` profiler windows of
+    ``reps`` calls of ``fn`` that hold every kernel it launched. A window
+    can come back with kernels missing (seen: a window summing to 0.0 ms);
+    it then counts fewer launches than expected (``per_call`` launches per
+    call, where known) or than the fullest window, and is taken again.
+    ``n`` defaults to 1 where ``per_call`` is known, else 2 (two windows
+    that agree). Fails after ``tries`` windows without ``n`` full ones."""
+    n = n or (1 if per_call else 2)
+    seen = []
+    for _ in range(tries):
+        seen.append(kernel_window(fn, reps)[1:])
+        most = max(c for _, c in seen)
+        full = [w for w, c in seen if c == most]
+        if len(full) >= n and (per_call is None or most == per_call * reps):
+            return full[:n]
+    fail(f"{what}: fewer than {n} of {tries} profiler windows held all its kernels "
+         f"(launches per window of {reps} calls: {[c for _, c in seen]}"
+         + (f", expected {per_call * reps})" if per_call else ")"))
+
+
+def device_ms(fn, reps: int, what: str, per_call=None, n=None) -> float:
+    """Device time per call of ``fn``: the sum of its kernels' durations,
+    the median over full_windows."""
+    import numpy as np
+
+    return float(np.median([sum(w.values())
+                            for w in full_windows(fn, reps, what, per_call, n)]))
+
+
+def profile_idle(fn, n: int, unprofiled_ms: float, smi: str, what: str):
+    """Device busy time per call of ``fn`` over a profiled window of ``n``
+    calls, the idle share against the unprofiled time (the profiler's own
+    host overhead stretches the profiled wall), the top kernels."""
+    # of two windows the one with the most launches (a window can lose
+    # kernels, full_windows; a train step's launch count may vary)
+    averages, by_kernel, _ = max((kernel_window(fn, n) for _ in range(2)), key=lambda w: w[2])
+    table = averages.table(sort_by="cuda_time_total", row_limit=20)
+    kernels = sorted(by_kernel.items(), key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+    idle = 1 - busy / unprofiled_ms
+    log(table)
+    log(f"profiled {what} x{n}: device busy {busy:.3f} ms per call; unprofiled "
+        f"{unprofiled_ms:.3f} ms -> idle share {idle:.3f} [{smi}]")
+    for name, ms in kernels[:10]:
+        log(f"  top kernel {ms:9.3f} ms/call  {name[:110]}")
+    return {"table": table, "device_busy_ms": busy, "idle_share": idle,
+            "kernels_ms": dict(kernels),
+            "top_kernels": [{"name": k, "ms_per_call": ms} for k, ms in kernels[:15]]}
+
+
+def alternating_ms(fns, smi: str, what: str, rounds: int = 6, reps: int = 10):
+    """Median ms per call of each of ``fns`` (CUDA events, ``rounds``
+    rounds of ``reps`` calls, the order reversed every other round: host
+    launch overhead makes single timings of many-op forwards noisy).
+    Returns (medians, samples)."""
+    import numpy as np
+
+    samples = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            samples[name].append(cuda_ms(fns[name], reps=reps))
+    times = {name: float(np.median(v)) for name, v in samples.items()}
+    for name, v in samples.items():
+        log(f"{name}: {times[name]:.3f} ms per {what} (median of {len(v)} rounds of {reps}, "
+            f"min {min(v):.3f}, max {max(v):.3f}) [{smi}]")
+    return times, samples
+
+
+def serve_maps(predict_fn, chunks, decode, size: int, what: str):
+    """Serve ``chunks`` through run_pipeline into a fresh directory; fail
+    unless every image gives a finite (size, size) map. Returns (maps,
+    seconds the pipeline took)."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.serve.pipeline import depth_writer, run_pipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write = depth_writer(tmp, save_png=False, stems={f: f for c in chunks for f in c})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_pipeline(chunks, decode, predict_fn, write)
+        wall = time.perf_counter() - t0
+        files = sorted(os.listdir(tmp))
+        want = sum(len(c) for c in chunks)
+        if len(files) != want:
+            fail(f"{what}: expected {want} depth maps, found {len(files)}")
+        for f in files:
+            d = np.load(os.path.join(tmp, f))
+            if d.shape != (size, size) or not np.isfinite(d).all():
+                fail(f"{what} {f}: shape {d.shape} or non-finite values")
+    return len(files), wall
+
+
+def served_img_per_s(predict_fn, decode, chunks, smi: str, what: str, n_e2e: int = 8):
+    """Served images/s through the pipeline, warm: ``n_e2e`` batches of the
+    decoded ``chunks`` (decode is a lookup here, so this times H2D, the
+    forward, D2H and the writes, not image decoding)."""
+    batches = [decode(c) for c in chunks] * (n_e2e // len(chunks))
+    e2e = [[f"e{b}_{i}" for i in range(len(chunks[0]))] for b in range(n_e2e)]
+    index = {c[0]: b for b, c in enumerate(e2e)}
+    n, wall = serve_maps(predict_fn, e2e, lambda c: batches[index[c[0]]], SIZE, what)
+    log(f"served {n} images through the pipeline (warm, {what}): {n / wall:.1f} img/s, "
+        f"{wall * 1e3 / n_e2e:.3f} ms per batch [{smi}]")
+    return n / wall
 
 
 def k1_times(smi: str, n: int = BATCH_TRAIN * 100, k: int = 5, device="cuda"):
@@ -429,7 +608,8 @@ def k1_times(smi: str, n: int = BATCH_TRAIN * 100, k: int = 5, device="cuda"):
                                                                    retain_graph=True)},
          (bb, bo)),
     ):
-        row = {key: device_ms(fn, reps) for key, fn in fns.items()}
+        row = {key: device_ms(fn, reps, f"{name} {key}", per_call=1 if key == "ms" else None)
+               for key, fn in fns.items()}
         row.update({key.replace("ms", "call_ms"): cuda_ms(fn, reps=reps, warmup=5)
                     for key, fn in fns.items()})
         row["bound_ms"], row["bound_by"] = bound_ms(nb, no, PEAK_FLOPS["float32"])
@@ -497,16 +677,16 @@ def k4_operands(m: int, k: int, n: int, mod=None, seed: int = 0):
     return x, w, ws, b, torch.tensor(0.05 / max(1, k) ** 0.5, device="cuda")
 
 
-def check_k4(sites):
+def check_k4(sites, extras=K4_EXTRA):
     """Phase 8 (1): K4 against its plain version at every site shape and
-    K4_EXTRA, f32 and bf16 out. Returns (rows, max|d| of the bf16 outputs
+    ``extras``, f32 and bf16 out. Returns (rows, max|d| of the bf16 outputs
     at the site shapes)."""
     import torch
 
     from pldepth_torch.ops import quant_matmul as k4
 
     cases = [(s["site"], s["m"], s["k"], s["n"], None, s["mod"]) for s in sites]
-    cases += [(f"extra{i}", m, k, n, act, None) for i, (m, k, n, act) in enumerate(K4_EXTRA)]
+    cases += [(f"extra{i}", m, k, n, act, None) for i, (m, k, n, act) in enumerate(extras)]
     rows, max_err = [], 0.0
     for i, (name, m, k, n, act, mod) in enumerate(cases):
         ops = k4_operands(m, k, n, mod, seed=500 + i)
@@ -549,13 +729,11 @@ def _rel_pearson(a, b):
 def quant_phase(decode, chunks, gtr, gstate, smi: str):
     """Phase 8: K4 checks, then int8 serving end to end with its gates.
     Returns (trainer, state, qstate, sites, record)."""
-    import numpy as np
     import torch
 
     from pldepth_torch.core.config import ExperimentConfig
     from pldepth_torch.models.pretrained import flax_from_state_dict, overlay_synthetic
     from pldepth_torch.ops import quant_matmul as k4
-    from pldepth_torch.serve.pipeline import depth_writer, run_pipeline
     from pldepth_torch.train import Trainer
 
     rec = {}
@@ -587,24 +765,13 @@ def quant_phase(decode, chunks, gtr, gstate, smi: str):
         f"{BATCH_SERVE} at {SIZE}^2")
     rec["k4_checks"], rec["k4_max_abs_err"] = check_k4(sites)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        serve = trainer.jit_predict(fused="quant")
-        write = depth_writer(tmp, save_png=False, stems={f: f for c in chunks for f in c})
-        k4.quant_matmul.launches = 0
-        t0 = time.time()
-        run_pipeline(chunks, lambda c: first if c is chunks[0] else decode(c),
-                     lambda imgs: serve(qstate, imgs), write)
-        rec["pipeline_s_cold"] = time.time() - t0
-        launches = k4.quant_matmul.launches
-        files = sorted(os.listdir(tmp))
-        if len(files) != len(chunks) * BATCH_SERVE:
-            fail(f"int8 serving: expected {len(chunks) * BATCH_SERVE} depth maps, "
-                 f"found {len(files)}")
-        for f in files:
-            d = np.load(os.path.join(tmp, f))
-            if d.shape != (SIZE, SIZE) or not np.isfinite(d).all():
-                fail(f"int8 serving {f}: shape {d.shape} or non-finite values")
-    log(f"served {len(files)} int8 depth maps (448, 448), finite; K4 launches {launches} over "
+    serve = trainer.jit_predict(fused="quant")
+    k4.quant_matmul.launches = 0
+    n, rec["pipeline_s_cold"] = serve_maps(lambda imgs: serve(qstate, imgs), chunks,
+                                           lambda c: first if c is chunks[0] else decode(c),
+                                           SIZE, "int8 serving")
+    launches = k4.quant_matmul.launches
+    log(f"served {n} int8 depth maps (448, 448), finite; K4 launches {launches} over "
         f"{len(chunks)} forwards")
     if launches != K4_SITES * len(chunks):
         fail(f"K4 launched {launches} times over {len(chunks)} forwards, expected {K4_SITES} each")
@@ -671,17 +838,21 @@ def k4_times(sites, smi: str, reps: int = 5):
         ops = k4_operands(m, k, n, s["mod"], seed=900 + i)
         nb, no = k4_cost(m, k, n)
         row = {"site": s["site"], "m": m, "k": k, "n": n,
-               "ms": device_ms(lambda: k4.quant_matmul(*ops), reps),
-               "plain_ms": device_ms(lambda: k4.quant_matmul_plain(*ops), reps),
+               "ms": device_ms(lambda: k4.quant_matmul(*ops), reps, f"K4 {s['site']}",
+                               per_call=1),
+               "plain_ms": device_ms(lambda: k4.quant_matmul_plain(*ops), reps,
+                                     f"K4 plain {s['site']}"),
                "bytes": nb, "ops": no, "bytes_ms": nb / HBM_BYTES_PER_S * 1e3,
                "ops_ms": no / PEAK_FLOPS["int8"] * 1e3}
         row["bound_ms"], row["bound_by"] = bound_ms(nb, no, PEAK_FLOPS["int8"])
         try:
             library(*ops)
-            row["library_ms"], row["library_note"] = device_ms(lambda: library(*ops), reps), ""
+            row["library_ms"], row["library_note"] = device_ms(
+                lambda: library(*ops), reps, f"_int_mm {s['site']}"), ""
         except RuntimeError as e:  # a measurement yardstick only: the port never calls it
             row["library_ms"], row["library_note"] = None, str(e).splitlines()[0][:160]
-            row["library_padded_ms"] = device_ms(lambda: library_padded(*ops), reps)
+            row["library_padded_ms"] = device_ms(lambda: library_padded(*ops), reps,
+                                                 f"_int_mm padded {s['site']}")
         row["tops"] = no / (row["ms"] * 1e-3) / 1e12
         rows.append(row)
         lib = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
@@ -705,10 +876,10 @@ def k4_times(sites, smi: str, reps: int = 5):
 
 
 def k3_bounds():
-    """K3 (pldepth_tpu/ops/banded_mbconv.py, still to port) computes one
-    whole inference MBConv, so its bound is block_cost's for the blocks it
+    """K3 (pldepth_tpu/ops/banded_mbconv.py) computes one whole inference
+    MBConv, so the bound of the whole call is block_cost's for the blocks it
     was written for: the B0 stage-2 and stage-3 blocks at 448^2, batch 8,
-    bf16 (224^2 and 112^2 inputs). Reckoned from the shapes; no card time."""
+    bf16 (224^2 and 112^2 inputs). Reckoned from the shapes."""
     import torch
 
     from pldepth_torch.models import get_pl_depth_net
@@ -730,71 +901,355 @@ def k3_bounds():
     return rows
 
 
+def k3_cases(b0, dtype, batch: int, seed: int):
+    """The four K3 blocks of B0 at 448^2 as whole blocks (expand included):
+    [(plan, name, params, kwargs, x)]."""
+    from pldepth_torch.models.fused_infer import plan_encoder
+
+    plans = [p for p in plan_encoder(b0.encoder, (SIZE, SIZE), dtype) if p.name in K3_BLOCKS]
+    calls = [(p.name, p.params, dict(kernel=p.kernel, stride=p.stride, residual=p.residual))
+             for p in plans]
+    xs = block_inputs(calls, plans, batch, dtype, seed)
+    return [(plan, *call, x) for plan, call, x in zip(plans, calls, xs)]
+
+
+def check_k3(b0):
+    """Phase 10 (1): K3 against its plain version and against K2 on the
+    same inputs, bf16 and f32, at the default band and the next smaller
+    divisor of the output height; one launch per call. Returns (rows,
+    max|d| of the bf16 outputs against the plain version)."""
+    import torch
+
+    from pldepth_torch.ops import banded_mbconv as k3
+    from pldepth_torch.ops import fused_mbconv as k2
+
+    rows, max_err = [], 0.0
+    for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        for plan, name, p, kw, x in k3_cases(b0, dtype, BATCH_SERVE, seed=300):
+            ho = plan.in_hw[0] // kw["stride"]
+            band = k3.pick_band(ho)
+            smaller = max(d for d in range(1, band) if ho % d == 0)
+            k2_out = k2.fused_mbconv_infer(x, p, **kw).float()
+            for b in (band, smaller):
+                before = k3.banded_mbconv_infer.launches
+                got = k3.banded_mbconv_infer(x, p, band_rows=b, **kw).float()
+                torch.cuda.synchronize()
+                if k3.banded_mbconv_infer.launches != before + 1:
+                    fail(f"K3 {name}: a call counted {k3.banded_mbconv_infer.launches - before} "
+                         f"launches")
+                want = k3.banded_mbconv_plain(x, p, band_rows=b, **kw).float()
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    fail(f"K3 {name} {dname} band {b}: shape {tuple(got.shape)} or non-finite")
+                err = float((got - want).abs().max())
+                rel = err / max(float(want.abs().max()), 1e-12)
+                rel_k2 = float((got - k2_out).abs().max()) / max(float(k2_out.abs().max()), 1e-12)
+                rows.append({"block": name, "dtype": dname, "band": b, "shape": list(x.shape),
+                             "max_abs_err": err, "rel": rel, "rel_vs_k2": rel_k2,
+                             "tol": TOL[dname]})
+                log(f"K3 vs plain {name:14s} {dname:8s} x{tuple(x.shape)} band {b:2d}: max|d| "
+                    f"{err:.3e} rel {rel:.3e}; vs K2 rel {rel_k2:.3e} (tol {TOL[dname]:g})")
+                if rel > TOL[dname] or rel_k2 > TOL[dname]:
+                    fail(f"K3 {name} {dname} band {b} disagrees: rel {rel:.3e} vs plain, "
+                         f"{rel_k2:.3e} vs K2")
+                if dname == "bfloat16":
+                    max_err = max(max_err, err)
+    return rows, max_err
+
+
+def k3_path(b0):
+    """Phase 10 (2): K3's path, the public function at the four blocks
+    (bf16, batch 8, default band), with the count from 0. Returns the
+    launches."""
+    import torch
+
+    from pldepth_torch.ops import banded_mbconv as k3
+
+    cases = k3_cases(b0, torch.bfloat16, BATCH_SERVE, seed=400)
+    k3.banded_mbconv_infer.launches = 0
+    for _, _, p, kw, x in cases:
+        y = k3.banded_mbconv_infer(x, p, **kw)
+    torch.cuda.synchronize()
+    launches = k3.banded_mbconv_infer.launches
+    if launches != len(K3_BLOCKS) or not torch.isfinite(y).all():
+        fail(f"K3's path launched it {launches} times, expected {len(K3_BLOCKS)}")
+    log(f"K3 path: {launches} launches over the {len(K3_BLOCKS)} blocks")
+    return launches
+
+
+def k3_cost(plan, p, batch: int, es: int):
+    """(bytes, flops) of each K3 pass: pass 1 reads x and the expand,
+    depthwise and SE weights once and writes g and the f32 scale; pass 2
+    reads g, the scale, the project weights (and x for the residual) and
+    writes y."""
+    h, w = plan.in_hw
+    cin = p.we.shape[0] if p.we is not None else p.dw.shape[-1]
+    ce, cse, cout = p.dw.shape[-1], p.se_w1.shape[-1], p.wp.shape[-1]
+    ho, wo = h // plan.stride, w // plan.stride
+    numel = lambda *ts: sum(t.numel() for t in ts if t is not None)  # noqa: E731
+    g_elems = batch * ho * wo * ce
+    pass1 = (es * (batch * h * w * cin + numel(p.we, p.dw, p.se_w1, p.se_w2) + g_elems)
+             + 4 * (numel(p.e_scale, p.e_shift, p.d_scale, p.d_shift, p.se_b1, p.se_b2)
+                    + batch * ce),
+             2 * batch * ((h * w * cin * ce if p.we is not None else 0)
+                          + ho * wo * ce * plan.kernel ** 2 + ho * wo * ce + 2 * ce * cse))
+    y_elems = batch * ho * wo * cout
+    pass2 = (es * (g_elems + p.wp.numel() + y_elems * (2 if plan.residual else 1))
+             + 4 * (batch * ce + 2 * cout),
+             2 * batch * ho * wo * ce * cout + g_elems)
+    return {"expand_dw": pass1, "project": pass2}
+
+
+def k3_times(b0, smi: str, reps: int = 10):
+    """Phase 10 (3): per block, bf16, batch 8, default band, all as device
+    time (profiler kernel durations, the median of three full windows,
+    full_windows): K3 per pass (pass 1 = its expand/depthwise and SE
+    launches, pass 2 = its project launch) beside the plain passes and each
+    pass's bound, and per call beside K2 on the same block; per call with
+    the host launching back to back (CUDA events) for K3 and K2 too; totals
+    per forward of the four blocks."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.ops import banded_mbconv as k3
+    from pldepth_torch.ops import fused_mbconv as k2
+
+    rows = []
+    tot = {f"{part}_{key}": 0.0 for part in ("expand_dw", "project")
+           for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    tot.update(call_ms=0.0, k2_ms=0.0, k2_call_ms=0.0)
+    for plan, name, p, kw, x in k3_cases(b0, torch.bfloat16, BATCH_SERVE, seed=500):
+        band = k3.pick_band(plan.in_hw[0] // kw["stride"])
+        call = lambda: k3.banded_mbconv_infer(x, p, **kw)  # noqa: E731
+        k2_call = lambda: k2.fused_mbconv_infer(x, p, **kw)  # noqa: E731
+        windows = full_windows(call, reps, f"K3 {name}", per_call=3, n=3)
+        unknown = [n for w in windows for n in w if "band_" not in n]
+        if unknown:
+            fail(f"K3 launched kernels that are not its own: {unknown}")
+        g, scale = k3.banded_pass1_plain(x, p, kernel=kw["kernel"], stride=kw["stride"],
+                                         band=band)
+        row = {"block": name, "x": list(x.shape), "kernel": kw["kernel"],
+               "stride": kw["stride"], "band": band, "kernels": windows,
+               "call_ms": cuda_ms(call, reps=reps),
+               "k2_ms": device_ms(k2_call, reps, f"K2 {name}", per_call=3, n=3),
+               "k2_call_ms": cuda_ms(k2_call, reps=reps)}
+        plains = {
+            "expand_dw": lambda: k3.banded_pass1_plain(x, p, kernel=kw["kernel"],
+                                                       stride=kw["stride"], band=band),
+            "project": lambda: k3.banded_pass2_plain(g, scale, x, p,
+                                                     residual=kw["residual"])}
+        for part, (nb, fl) in k3_cost(plan, p, BATCH_SERVE, 2).items():
+            names = ("band_project",) if part == "project" else ("band_expand_dw", "band_se")
+            bytes_ms = nb / HBM_BYTES_PER_S * 1e3
+            ops_ms = fl / PEAK_FLOPS["bfloat16"] * 1e3
+            row[part] = {"ms": float(np.median([sum(ms for n, ms in w.items()
+                                                    if any(k in n for k in names))
+                                                for w in windows])),
+                         "plain_ms": device_ms(plains[part], reps, f"K3 plain {part} {name}",
+                                               n=3),
+                         "bytes": nb, "flops": fl,
+                         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                         "bound_ms": max(bytes_ms, ops_ms)}
+            for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+                tot[f"{part}_{key}"] += row[part][key]
+        for key in ("call_ms", "k2_ms", "k2_call_ms"):
+            tot[key] += row[key]
+        rows.append(row)
+        e, pr = row["expand_dw"], row["project"]
+        log(f"K3 {name:14s} x{tuple(x.shape)} k{kw['kernel']} s{kw['stride']} band {band}: "
+            f"pass 1 {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, bound {e['bound_ms']:.4f}), "
+            f"pass 2 {pr['ms']:.4f} ms (plain {pr['plain_ms']:.4f}, bound {pr['bound_ms']:.4f}); "
+            f"K2 {row['k2_ms']:.4f} ms; per call with the host {row['call_ms']:.4f} ms, K2 "
+            f"{row['k2_call_ms']:.4f} ms [{smi}]")
+    log(f"K3 per forward (4 blocks, batch {BATCH_SERVE}): pass 1 {tot['expand_dw_ms']:.3f} ms, "
+        f"pass 2 {tot['project_ms']:.3f} ms, total "
+        f"{tot['expand_dw_ms'] + tot['project_ms']:.3f} ms; plain "
+        f"{tot['expand_dw_plain_ms'] + tot['project_plain_ms']:.3f} ms; K2 {tot['k2_ms']:.3f} ms; "
+        f"bound {tot['expand_dw_bound_ms'] + tot['project_bound_ms']:.4f} ms (device time); per "
+        f"call with the host K3 {tot['call_ms']:.3f} ms, K2 {tot['k2_call_ms']:.3f} ms [{smi}]")
+    return rows, tot
+
+
+def wrong_eps_fold(model):
+    """A copy of a ff_redweb model whose encoder BNs carry the decoder's eps
+    (1e-3 for 1.001e-5): what a fold that ignored the per-scope eps would
+    make of it."""
+    from pldepth_torch.models.layers import BatchNorm
+
+    wrong = copy.deepcopy(model)
+    for m in wrong.encoder.modules():
+        if isinstance(m, BatchNorm):
+            m.eps = 1e-3
+    return wrong
+
+
+def redweb_serve_phase(decode, chunks, smi: str):
+    """Phase 12: ff_redweb served in its default mode (bn_fold) and in int8,
+    with the gates of the docstring, then its serving times."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.models.layers import TrainPass
+    from pldepth_torch.models.pretrained import flax_from_state_dict, overlay_synthetic
+    from pldepth_torch.ops import quant_matmul as k4
+    from pldepth_torch.train import Trainer
+
+    rec = {}
+    trainer = Trainer(ExperimentConfig(model_name="ff_redweb", input_size=SIZE),
+                      steps_per_epoch=1)
+    state = trainer.init_state()
+    overlay_synthetic(state.model, list(flax_from_state_dict(state.model.state_dict())))
+    randomise_bn(state.model, seed=5)
+    mode = Trainer.serving_mode(False, True, "auto", "ff_redweb")  # cli predict's defaults
+    if mode != "bn_fold":
+        fail(f"ff_redweb's default serving mode is {mode!r}, expected 'bn_fold'")
+    serve = trainer.jit_predict(fused=mode)
+    n, rec["pipeline_s_cold"] = serve_maps(lambda imgs: serve(state, imgs), chunks, decode,
+                                           SIZE, "ff_redweb bn_fold")
+    log(f"served {n} ff_redweb depth maps ({SIZE}, {SIZE}) in the default mode ({mode}), "
+        f"finite")
+
+    imgs = torch.from_numpy(decode(chunks[0])).cuda()
+    # bf16 predict_bnfold and predict, each against the f32 graph of the same
+    # weights, at two seeds of BN statistics; and a fold made with the
+    # decoder's eps (1e-3) in the encoder, to read what the gates see of it
+    ftr = Trainer(ExperimentConfig(model_name="ff_redweb", input_size=SIZE,
+                                   compute_dtype="float32"), steps_per_epoch=1)
+    fstate = ftr.init_state()
+    bf16_pairs = []
+    for seed in (5, 6):
+        model = state.model
+        if seed != 5:
+            model = copy.deepcopy(state.model)
+            randomise_bn(model, seed=seed)
+        fstate.model.load_state_dict(model.state_dict())
+        p32 = ftr.predict(fstate, imgs).cpu()
+        pb = trainer.predict_bnfold(state.replace(model=model), imgs).float().cpu()
+        pp = trainer.predict(state.replace(model=model), imgs).float().cpu()
+        bf16_pairs += [(f"bnfold_bf16_vs_f32_seed{seed}", pb, p32, 3e-2),
+                       (f"predict_bf16_vs_f32_seed{seed}", pp, p32, 3e-2),
+                       (f"bnfold_vs_predict_bf16_seed{seed}", pb, pp, None)]
+        if seed == 5:
+            pb5, p32_5 = pb, p32
+    del ftr, fstate
+    wrong = wrong_eps_fold(state.model)
+    bf16_pairs.append(("wrong_fold_bf16_vs_f32_seed5",
+                       trainer.predict_bnfold(state.replace(model=wrong), imgs).float().cpu(),
+                       p32_5, None))
+    del wrong
+    here = os.path.dirname(os.path.abspath(__file__))
+    gold = np.load(os.path.join(here, "tests", "golden", "full_model_ff_redweb.npz"))
+    gtr = Trainer(ExperimentConfig(model_name="ff_redweb", input_size=96,
+                                   compute_dtype="float32"), steps_per_epoch=1)
+    gstate = gtr.init_state()
+    overlay_synthetic(gstate.model, gold["names"])
+    x_raw = torch.from_numpy(gold["x_raw"]).cuda()
+    with torch.no_grad():
+        g_infer = gstate.model(x_raw).cpu()[..., 0]
+        g_train = gstate.model(x_raw, TrainPass()).cpu()[..., 0]
+    g_fold = gtr.predict_bnfold(gstate, gold["x_raw"] / 255.0).cpu()
+    g_plain = gtr.predict(gstate, gold["x_raw"] / 255.0).cpu()
+    g_wrong = gtr.predict_bnfold(gstate.replace(model=wrong_eps_fold(gstate.model)),
+                                 gold["x_raw"] / 255.0).cpu()
+
+    first = decode(chunks[0])
+    t0 = time.perf_counter()
+    qstate = trainer.prepare_quant(state, first)
+    torch.cuda.synchronize()
+    rec["calib_s_first"] = time.perf_counter() - t0
+    sites = k4_sites(trainer, qstate, BATCH_SERVE, SIZE)
+    if len(sites) != K4_SITES_REDWEB:
+        fail(f"expected {K4_SITES_REDWEB} dense int8 sites in ff_redweb, found {len(sites)}")
+    shapes = {}
+    for site in sites:
+        shapes.setdefault((site["m"], site["k"], site["n"]), site)
+    macs = sum(site["m"] * site["k"] * site["n"] for site in sites)
+    log(f"ff_redweb: {len(sites)} dense int8 sites ({len(shapes)} shapes), "
+        f"{macs / 1e9:.2f} G multiply-adds per forward of {BATCH_SERVE} at {SIZE}^2")
+    rec["k4_checks"], rec["k4_max_abs_err"] = check_k4(list(shapes.values()), extras=())
+
+    qserve = trainer.jit_predict(fused="quant")
+    k4.quant_matmul.launches = 0
+    n, _ = serve_maps(lambda imgs: qserve(qstate, imgs), chunks,
+                      lambda c: first if c is chunks[0] else decode(c), SIZE, "ff_redweb int8")
+    launches = k4.quant_matmul.launches
+    log(f"served {n} ff_redweb int8 depth maps, finite; K4 launches {launches} over "
+        f"{len(chunks)} forwards")
+    if launches != K4_SITES_REDWEB * len(chunks):
+        fail(f"K4 launched {launches} times over {len(chunks)} ff_redweb forwards, expected "
+             f"{K4_SITES_REDWEB} each")
+    rec["k4_launches_main_path"] = launches
+    pq = trainer.predict_quant(qstate, imgs).float().cpu()
+    with plain_k4_route():
+        pq_plain = trainer.predict_quant(qstate, imgs).float().cpu()
+
+    # bf16: the folded and unfolded graphs round at other points through 96
+    # convs, each 2.1-2.4e-2 from the f32 graph on the H100 (the two 3.25e-2
+    # apart), so each is held to the f32 graph at 3e-2 and their distance
+    # recorded; the f32 check at 96^2 holds the fold itself
+    gates = bf16_pairs + [
+             ("bnfold_vs_predict_f32_96", g_fold, g_plain, 2e-5),
+             ("wrong_fold_vs_predict_f32_96", g_wrong, g_plain, None),
+             ("golden_infer_f32_96", g_infer, gold["ref_infer"][..., 0], 5e-5),
+             ("golden_train_f32_96", g_train, gold["ref_train"][..., 0], 5e-4),
+             ("k4_route_vs_plain_route", pq, pq_plain, 1e-2),
+             ("quant_vs_bnfold", pq, pb5, None)]
+    for name, a, b, tol in gates:
+        rel, r = _rel_pearson(a, b)
+        rec[name] = {"rel": rel, "pearson": r}
+        log(f"ff_redweb {name}: rel {rel:.3e}" + (f" (tol {tol:g})" if tol else " (recorded)")
+            + f", pearson {r:.6f}")
+        if tol is not None and not rel <= tol:
+            fail(f"ff_redweb {name}: rel {rel:.3e} > {tol:g}")
+    if not rec["wrong_fold_vs_predict_f32_96"]["rel"] > 2e-5:
+        fail("a fold with the decoder's eps in the encoder passes the f32 fold gate (2e-5)")
+
+    # times: alternating rounds, then served img/s (bn_fold, warm) and the
+    # device idle share of predict_bnfold
+    fns = {"predict_bnfold": lambda: trainer.predict_bnfold(state, imgs),
+           "predict": lambda: trainer.predict(state, imgs),
+           "predict_quant": lambda: trainer.predict_quant(qstate, imgs)}
+    times, samples = alternating_ms(fns, smi, f"ff_redweb batch of {BATCH_SERVE} at {SIZE}^2 "
+                                    f"bf16", rounds=4)
+    rec["batch_ms"], rec["batch_ms_samples"] = times, samples
+    rec["served_img_per_s_bnfold"] = served_img_per_s(lambda imgs: serve(state, imgs), decode,
+                                                      chunks, smi, "ff_redweb bn_fold")
+    rec["bnfold_profile"] = profile_idle(fns["predict_bnfold"], 3, times["predict_bnfold"], smi,
+                                         "ff_redweb predict_bnfold")
+    # K4 in ff_redweb's int8 graph: its 96 launches' device time per forward
+    # beside the bound of its 96 sites
+    rec["quant_profile"] = prof = profile_idle(fns["predict_quant"], 3, times["predict_quant"],
+                                               smi, "ff_redweb predict_quant")
+    nb, no = (sum(k4_cost(site["m"], site["k"], site["n"])[i] for site in sites) for i in (0, 1))
+    rec["k4_graph"] = {"ms": sum(ms for n, ms in prof["kernels_ms"].items()
+                                 if "quant_matmul_kernel" in n),
+                       "bytes": nb, "ops": no}
+    rec["k4_graph"]["bound_ms"], rec["k4_graph"]["bound_by"] = bound_ms(nb, no, PEAK_FLOPS["int8"])
+    log(f"K4 in the ff_redweb int8 graph: {rec['k4_graph']['ms']:.3f} ms per forward of "
+        f"{BATCH_SERVE} ({K4_SITES_REDWEB} launches), bound {rec['k4_graph']['bound_ms']:.4f} ms "
+        f"({rec['k4_graph']['bound_by']}: {nb} B, {no / 1e9:.1f} G int8 ops) [{smi}]")
+    return rec
+
+
 def serving_times(trainer, state, qstate, decode, chunks, smi: str):
     """Phase 9: served img/s in "quant" mode, ms per batch of the four
     serving modes in alternating rounds, and a profiler breakdown of
     predict_quant with the device idle share."""
-    import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from pldepth_torch.serve.pipeline import depth_writer, run_pipeline
 
     rec = {}
     serve = trainer.jit_predict(fused="quant")
-    n_e2e = 8
-    batches = [decode(c) for c in chunks] * (n_e2e // len(chunks))
-    e2e_chunks = [[f"q{b}_{i}" for i in range(BATCH_SERVE)] for b in range(n_e2e)]
-    index = {c[0]: b for b, c in enumerate(e2e_chunks)}
-    with tempfile.TemporaryDirectory() as tmp:
-        write = depth_writer(tmp, save_png=False, stems={f: f for c in e2e_chunks for f in c})
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_pipeline(e2e_chunks, lambda c: batches[index[c[0]]],
-                     lambda imgs: serve(qstate, imgs), write)
-        wall = time.perf_counter() - t0
-    rec["served_img_per_s_quant"] = n_e2e * BATCH_SERVE / wall
-    log(f"served {n_e2e * BATCH_SERVE} images through the pipeline (warm, quant): "
-        f"{rec['served_img_per_s_quant']:.1f} img/s, {wall * 1e3 / n_e2e:.3f} ms per batch [{smi}]")
-
-    imgs = torch.from_numpy(batches[0]).cuda()
+    rec["served_img_per_s_quant"] = served_img_per_s(lambda imgs: serve(qstate, imgs), decode,
+                                                     chunks, smi, "quant")
+    imgs = torch.from_numpy(decode(chunks[0])).cuda()
     fns = {"predict_quant": lambda: trainer.predict_quant(qstate, imgs),
            "predict_bnfold": lambda: trainer.predict_bnfold(state, imgs),
            "predict": lambda: trainer.predict(state, imgs),
            "predict_fused": lambda: trainer.predict_fused(state, imgs)}
-    samples = {name: [] for name in fns}
-    order = list(fns)
-    for r in range(6):
-        for name in (order if r % 2 == 0 else order[::-1]):
-            samples[name].append(cuda_ms(fns[name], reps=10))
-    times = {name: float(np.median(v)) for name, v in samples.items()}
-    for name, v in samples.items():
-        log(f"{name}: {times[name]:.3f} ms per batch of {BATCH_SERVE} at {SIZE}^2 bf16 (median "
-            f"of {len(v)} rounds of 10, min {min(v):.3f}, max {max(v):.3f}) [{smi}]")
+    times, samples = alternating_ms(fns, smi, f"batch of {BATCH_SERVE} at {SIZE}^2 bf16")
     rec["batch_ms"], rec["batch_ms_samples"] = times, samples
-
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        for _ in range(n_prof):
-            fns["predict_quant"]()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=25)
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n_prof) for e in events
-                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-                     key=lambda kv: -kv[1])
-    busy = sum(ms for _, ms in kernels)
-    idle = 1 - busy / times["predict_quant"]
-    log(table)
-    log(f"profiled predict_quant x{n_prof}: device busy {busy:.3f} ms per batch; unprofiled "
-        f"batch {times['predict_quant']:.3f} ms -> idle share {idle:.3f} [{smi}]")
-    for name, ms in kernels[:12]:
-        log(f"  top kernel {ms:8.3f} ms/batch  {name[:110]}")
-    rec["quant_profile"] = {"table": table, "device_busy_ms": busy, "idle_share": idle,
-                            "top_kernels": [{"name": n, "ms_per_batch": ms}
-                                            for n, ms in kernels[:20]]}
+    rec["quant_profile"] = profile_idle(fns["predict_quant"], 3, times["predict_quant"], smi,
+                                        "predict_quant")
     return rec
 
 
@@ -820,7 +1275,6 @@ def main() -> int:
     from pldepth_torch.models.pretrained import flax_from_state_dict, overlay_synthetic
     from pldepth_torch.ops import _build
     from pldepth_torch.ops import fused_mbconv as k2
-    from pldepth_torch.serve.pipeline import depth_writer, run_pipeline
     from pldepth_torch.train import Trainer
     from pldepth_torch.train.checkpoint import load_weights_npz, save_weights_npz
 
@@ -896,23 +1350,12 @@ def main() -> int:
             return np.random.default_rng(seed).uniform(
                 size=(len(chunk), SIZE, SIZE, 3)).astype(np.float32)
 
-        out_dir = os.path.join(tmp, "depth")
-        os.makedirs(out_dir)
-        serve = trainer.jit_predict(fused=True)
-        write = depth_writer(out_dir, save_png=False, stems={f: f for c in chunks for f in c})
-        k2.fused_mbconv_infer.launches = 0
-        t0 = time.time()
-        run_pipeline(chunks, decode, lambda imgs: serve(state, imgs), write)
-        record["pipeline_s_cold"] = time.time() - t0
-        launches = k2.fused_mbconv_infer.launches
-        files = sorted(os.listdir(out_dir))
-        if len(files) != 32:
-            fail(f"expected 32 depth maps, found {len(files)}")
-        for f in files:
-            d = np.load(os.path.join(out_dir, f))
-            if d.shape != (SIZE, SIZE) or not np.isfinite(d).all():
-                fail(f"{f}: shape {d.shape} or non-finite values")
-    log(f"served {len(files)} depth maps (448, 448), finite; K2 launches {launches} "
+    serve = trainer.jit_predict(fused=True)
+    k2.fused_mbconv_infer.launches = 0
+    n, record["pipeline_s_cold"] = serve_maps(lambda imgs: serve(state, imgs), chunks, decode,
+                                              SIZE, "fused serving")
+    launches = k2.fused_mbconv_infer.launches
+    log(f"served {n} depth maps (448, 448), finite; K2 launches {launches} "
         f"over {n_batches} forwards")
     if launches != 16 * n_batches:
         fail(f"K2 launched {launches} times over {n_batches} forwards, expected 16 each")
@@ -944,37 +1387,12 @@ def main() -> int:
             fail(f"{fn} disagrees with the TF golden: rel {grel:.3e}")
 
     # 4. times --------------------------------------------------------------------
-    # end to end, warm: host arrays in -> depth files out through the
-    # pipeline (decode is a lookup here, so this times H2D, the forward,
-    # D2H and the writes, not image decoding)
-    n_e2e = 8
-    batches = [decode(c) for c in chunks] * (n_e2e // n_batches)
-    e2e_chunks = [[f"e{b}_{i}" for i in range(BATCH_SERVE)] for b in range(n_e2e)]
-    index = {c[0]: b for b, c in enumerate(e2e_chunks)}
-    with tempfile.TemporaryDirectory() as tmp:
-        write = depth_writer(tmp, save_png=False, stems={f: f for c in e2e_chunks for f in c})
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_pipeline(e2e_chunks, lambda c: batches[index[c[0]]],
-                     lambda imgs: serve(state, imgs), write)
-        wall = time.perf_counter() - t0
-    record["served_img_per_s"] = n_e2e * BATCH_SERVE / wall
-    log(f"served {n_e2e * BATCH_SERVE} images through the pipeline (warm, fused): "
-        f"{record['served_img_per_s']:.1f} img/s, {wall * 1e3 / n_e2e:.3f} ms per batch [{smi}]")
-
-    # alternating rounds (fused, plain, plain, fused, ...): host-side launch
-    # overhead makes single timings of these many-op forwards noisy
-    samples = {"predict_fused": [], "predict": []}
-    for r in range(6):
-        for fn in (("predict_fused", "predict") if r % 2 == 0 else ("predict", "predict_fused")):
-            f = getattr(trainer, fn)
-            samples[fn].append(cuda_ms(lambda: f(state, imgs), reps=10))
-    times = {fn: float(np.median(v)) for fn, v in samples.items()}
-    for fn, v in samples.items():
-        log(f"{fn}: {times[fn]:.3f} ms per batch of {BATCH_SERVE} at {SIZE}^2 bf16 (median of "
-            f"{len(v)} rounds of 10, min {min(v):.3f}, max {max(v):.3f}) [{smi}]")
-    record["batch_ms"] = times
-    record["batch_ms_samples"] = samples
+    record["served_img_per_s"] = served_img_per_s(lambda imgs: serve(state, imgs), decode,
+                                                  chunks, smi, "fused")
+    times, samples = alternating_ms(
+        {fn: (lambda f=getattr(trainer, fn): f(state, imgs)) for fn in ("predict_fused", "predict")},
+        smi, f"batch of {BATCH_SERVE} at {SIZE}^2 bf16")
+    record["batch_ms"], record["batch_ms_samples"] = times, samples
 
     plans = trainer._plan(state.model, (SIZE, SIZE))
     calls = k2_calls(plans)
@@ -1002,37 +1420,14 @@ def main() -> int:
     log(f"K2 per forward (16 blocks, batch {BATCH_SERVE}): {tot['ms']:.3f} ms, "
         f"plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms [{smi}]")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    n_prof = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n_prof):
-            trainer.predict_fused(state, imgs)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=25)
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA) / 1e3  # kernels only
-    log(table)
-    # idle share against the unprofiled batch time (the profiler's own
-    # host overhead stretches the profiled wall)
-    idle = 1 - busy_ms / n_prof / times["predict_fused"]
-    log(f"profiled predict_fused x{n_prof}: device busy {busy_ms / n_prof:.3f} ms per "
-        f"batch; unprofiled batch {times['predict_fused']:.3f} ms -> idle share "
-        f"{idle:.3f} (profiled wall {wall_ms / n_prof:.3f} ms) [{smi}]")
-    record["profile_table"] = table
-    record["profile"] = {"calls": n_prof, "device_busy_ms": busy_ms,
-                         "profiled_wall_ms": wall_ms, "idle_share": idle}
+    record["profile"] = profile_idle(lambda: trainer.predict_fused(state, imgs), 3,
+                                     times["predict_fused"], smi, "predict_fused")
 
     # 5. K1 against its plain version ---------------------------------------------
     record["k1_checks"], k1_fwd_err, k1_bwd_err = check_k1()
 
     # 6. the training slice --------------------------------------------------------
-    trainer_t, state_t, cfg_t, rec_t = train_phase()
+    trainer_t, state_t, cfg_t, rec_t = train_phase(EFFNET_CONFIG, batch=BATCH_TRAIN)
     record["train"] = rec_t
     log(f"train images/s through fit (host BatchIterator feed): "
         f"{rec_t['train_img_per_s']:.1f} (per epoch {[round(x, 1) for x in rec_t['train_img_per_s_epochs']]}); "
@@ -1055,6 +1450,32 @@ def main() -> int:
     record["k3_bounds"] = k3_bounds()
     for s in record["k4_sites"]:
         s.pop("mod", None)
+    del trainer_q, state_q, qstate, sites
+    torch.cuda.empty_cache()
+
+    # 10. K3 against its plain version and K2, its path, its times ----------------------
+    record["k3_checks"], k3_err = check_k3(b0)
+    record["k3_launches_main_path"] = k3_launches = k3_path(b0)
+    record["k3_blocks"], k3t = k3_times(b0, smi)
+    record["k3_totals"] = k3t
+    torch.cuda.empty_cache()
+
+    # 11. ff_redweb training -------------------------------------------------------------
+    trainer_r, state_r, cfg_r, rec_rt = train_phase(REDWEB_CONFIG, n_train=16, n_val=8, epochs=5)
+    record["redweb_train"] = rec_rt
+    log(f"ff_redweb train images/s through fit (batch {cfg_r.batch_size}): "
+        f"{rec_rt['train_img_per_s']:.1f} (per "
+        f"epoch {[round(x, 1) for x in rec_rt['train_img_per_s_epochs']]}); peak device memory "
+        f"{rec_rt['peak_mem_gb']:.2f} GB [{smi}]")
+    cfg32 = cfg_r.replace(batch_size=BATCH_TRAIN)
+    record["redweb_train_times"] = {
+        "batch4": train_times(trainer_r, state_r, cfg_r, smi),
+        "batch32": train_times(Trainer(cfg32, trainer_r.steps_per_epoch), state_r, cfg32, smi)}
+    del trainer_r, state_r
+    torch.cuda.empty_cache()
+
+    # 12. ff_redweb serving, bn_fold and int8 ----------------------------------------------
+    record["redweb_serve"] = rec_rs = redweb_serve_phase(decode, chunks, smi)
 
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",
@@ -1065,8 +1486,16 @@ def main() -> int:
         "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
         "library_ms": None,
     }] + [{
+        "name": f"banded_{part}", "route": "cuda", "source": "pldepth_torch/csrc/banded_mbconv.cu",
+        "replaces": f"pldepth_tpu/ops/banded_mbconv.py:{line}", "launches": k3_launches,
+        "max_abs_err": k3_err,
+        **{key: k3t[f"{part}_{key}"] for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes" if k3t[f"{part}_bytes_ms"] >= k3t[f"{part}_ops_ms"] else "operations",
+        "library_ms": None,
+    } for part, line in (("expand_dw", 62), ("project", 159))] + [{
         "name": name, "route": "cuda", "source": "pldepth_torch/csrc/listmle.cu",
-        "replaces": replaces, "launches": rec_t["launches"][name], "max_abs_err": err,
+        "replaces": replaces,
+        "launches": rec_t["launches"][name] + rec_rt["launches"][name], "max_abs_err": err,
         **{key: k1t[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms")},
     } for name, replaces, err in (
@@ -1074,7 +1503,8 @@ def main() -> int:
         ("listmle_bwd", "pldepth_tpu/ops/listmle_pallas.py:121", k1_bwd_err))] + [{
         "name": "quant_matmul", "route": "cuda", "source": "pldepth_torch/csrc/quant_matmul.cu",
         "replaces": "pldepth_tpu/ops/quant_matmul.py:44",
-        "launches": rec_q["k4_launches_main_path"], "max_abs_err": rec_q["k4_max_abs_err"],
+        "launches": rec_q["k4_launches_main_path"] + rec_rs["k4_launches_main_path"],
+        "max_abs_err": max(rec_q["k4_max_abs_err"], rec_rs["k4_max_abs_err"]),
         "ms": k4t["ms"], "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
         "bound_by": "bytes" if k4t["bytes_ms"] >= k4t["ops_ms"] else "operations",
         "library_ms": k4t["library_ms"],

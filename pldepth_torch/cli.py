@@ -6,8 +6,9 @@ with argparse, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 versions of the kernels). ``train`` runs ``Trainer.fit`` and saves
 ``weights.npz``; the post-train evaluation that follows in the JAX command
 comes with the eval slice (ROADMAP.md queue 1 item 8). ``predict`` and
-``serve`` with their default flags serve the int8 graph (dense convs on K4,
-ops/quant_matmul.py), calibrated on the first input batch(es). Options the
+``serve`` with their default flags serve the int8 graph of the ff_effnet
+family (dense convs on K4, ops/quant_matmul.py), calibrated on the first
+input batch(es), and the BN-folded graph of ff_redweb. Options the
 port does not run yet raise NotImplementedError naming their ROADMAP item.
 The other commands come with later slices (ROADMAP.md queue 1).
 """

@@ -16,33 +16,17 @@
 // The launcher does not synchronise and allocates nothing: the Python
 // wrapper owns every buffer and checks the returned cudaError_t.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mbconv_common.cuh"
 
 namespace {
+
+using namespace pld;
 
 constexpr int CS = 32;         // channel slice of one block = one warp's lanes
 constexpr int THREADS = 256;   // 8 warps
 constexpr int NWARPS = THREADS / 32;
 constexpr int PX = 4;          // expand: pixels per warp iteration
-
-// project GEMM tile
-constexpr int BM = 64, BN = 64, BK = 16;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-// value after a round trip through the storage dtype
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<T>(v));
-}
-__device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
-__device__ __forceinline__ float swish_f(float v) { return v * sigmoid_f(v); }
+static_assert(THREADS == PROJ_THREADS, "the project tile takes 256 threads");
 
 inline int tile_of(int stride) { return stride == 1 ? 16 : 8; }
 
@@ -172,67 +156,18 @@ __global__ void __launch_bounds__(THREADS) se_kernel(
   }
 }
 
-// (c) One block per (64-pixel tile, 64-channel tile, image); each thread
-// owns a 4x4 strided patch of the output tile.
+// (c) One block per (64-pixel tile, 64-channel tile, image).
 template <typename T>
 __global__ void __launch_bounds__(THREADS) project_kernel(
     const T* __restrict__ g, const T* __restrict__ scale,
     const T* __restrict__ wp, const float* __restrict__ p_s,
     const float* __restrict__ p_t, const T* __restrict__ x, T* __restrict__ y,
     int M, int Ce, int Cout, int residual) {
-  __shared__ float As[BK][BM + 1];  // +1: the transposing store is conflict-free
-  __shared__ float Bs[BK][BN];
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const T* gb = g + (size_t)b * M * Ce;
-  const T* sb = scale + (size_t)b * Ce;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < Ce; k0 += BK) {
-#pragma unroll
-    for (int r = 0; r < (BM * BK) / THREADS; ++r) {
-      const int idx = threadIdx.x + r * THREADS;
-      const int mm = idx / BK, kk = idx % BK;
-      const int m = m0 + mm, k = k0 + kk;
-      // g * scale is a product in the storage dtype
-      As[kk][mm] = (m < M && k < Ce) ? round_to<T>(to_f(gb[(size_t)m * Ce + k]) * to_f(sb[k])) : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < (BK * BN) / THREADS; ++r) {
-      const int idx = threadIdx.x + r * THREADS;
-      const int kk = idx / BN, nn = idx % BN;
-      const int k = k0 + kk, n = n0 + nn;
-      Bs[kk][nn] = (k < Ce && n < Cout) ? to_f(wp[(size_t)k * Cout + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= Cout) continue;
-      const size_t o = ((size_t)b * M + m) * Cout + n;
-      float v = round_to<T>(acc[i][j] * p_s[n] + p_t[n]);
-      if (residual) v += to_f(x[o]);  // x is (B,M,Cout) when residual
-      y[o] = from_f<T>(v);
-    }
-  }
+  const size_t b = blockIdx.z;
+  // x is (B, M, Cout) when residual
+  project_tile<T, T>(g + b * M * Ce, scale + b * Ce, wp, p_s, p_t,
+                     residual ? x + b * M * Cout : nullptr, y + b * M * Cout,
+                     blockIdx.x * PBM, M, blockIdx.y * PBN, Ce, Cout, residual);
 }
 
 template <typename T, int K>
@@ -269,7 +204,7 @@ int launch(const void* x, const void* we, const float* e_s, const float* e_t,
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const int M = Ho * Wo;
-  project_kernel<T><<<dim3((M + BM - 1) / BM, (Cout + BN - 1) / BN, B), THREADS, 0, stream>>>(
+  project_kernel<T><<<dim3((M + PBM - 1) / PBM, (Cout + PBN - 1) / PBN, B), THREADS, 0, stream>>>(
       (const T*)g, (const T*)scale, (const T*)wp, p_s, p_t, (const T*)x, (T*)y, M, Ce,
       Cout, residual);
   return (int)cudaGetLastError();

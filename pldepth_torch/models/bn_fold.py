@@ -9,8 +9,8 @@ serving: with running statistics (mean, var) and affine (scale, beta),
 Pairing rule: a BatchNorm named ``X`` normalises the sibling conv named
 ``X.replace("bn", "conv")`` (``stage2_block0.dw_bn`` -> ``dw_conv``,
 ``decoder.bn3`` -> ``conv3``). Each BatchNorm folds with its own ``eps``,
-which gives the JAX package's per-scope rule (1e-3 here; 1.001e-5 for the
-ResNet encoder of ``ff_redweb``, ROADMAP.md queue 1 item 9). The model
+which gives the JAX package's per-scope rule (1e-3, and 1.001e-5 for the
+ResNet encoder of ``ff_redweb``, models/resnet.py). The model
 classes take ``bn_fold=True`` for the folded graph (no BN modules, biased
 convs), inference only.
 """

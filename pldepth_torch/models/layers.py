@@ -1,9 +1,10 @@
 """Flax-equivalent building blocks on NHWC tensors.
 
 ``Conv`` is ``flax.linen.Conv(padding='SAME')``: TF SAME padding (asymmetric
-at stride 2), input and kernel cast to the compute dtype at use, bias added
-in the compute dtype. ``BatchNorm`` is flax ``BatchNorm(dtype=float32,
-epsilon=1e-3)`` with running statistics: ``(x - mean) * (rsqrt(var + eps) *
+at stride 2) or an explicit symmetric ``padding``, input and kernel cast to
+the compute dtype at use, bias added in the compute dtype. ``BatchNorm`` is
+flax ``BatchNorm(dtype=float32, epsilon=1e-3)`` (the ResNet encoder builds
+its own with 1.001e-5) with running statistics: ``(x - mean) * (rsqrt(var + eps) *
 scale) + bias`` in f32. Parameters stay f32; weights are OIHW, the layout
 ``F.conv2d`` takes (models/pretrained.py maps them to and from flax HWIO).
 
@@ -41,9 +42,10 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> N
 class Conv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  groups: int = 1, bias: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, padding: Optional[int] = None):
         super().__init__()
         self.stride, self.groups, self.dtype = stride, groups, dtype
+        self.padding = padding  # None: SAME; else explicit, every side
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
@@ -55,7 +57,8 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        y = conv2d_same_nhwc(x.to(dt), self.weight.to(dt), self.stride, self.groups)
+        y = conv2d_same_nhwc(x.to(dt), self.weight.to(dt), self.stride, self.groups,
+                             self.padding)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y

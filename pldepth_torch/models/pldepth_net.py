@@ -1,5 +1,6 @@
 """Model factory (``pldepth_tpu/models/pldepth_net.py``): the ff_effnet
-family, EfficientNet encoder + skip-concat decoder, NHWC in and out.
+family (EfficientNet encoder + skip-concat decoder) and ff_redweb (ResNet-50
+encoder + ReDWeb feature-fusion decoder), NHWC in and out.
 
 A :class:`PLDepthModel` names a model and knows how to build a fresh
 ``nn.Module`` for it (``make()``; ``make(bn_fold=True)`` and
@@ -14,13 +15,14 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
 from torch import nn
 
 from pldepth_torch.core.device import torch_dtype
-from pldepth_torch.models.decoders import SkipConcatDecoder
+from pldepth_torch.models import resnet
+from pldepth_torch.models.decoders import ReDWebDecoder, SkipConcatDecoder
 from pldepth_torch.models.efficientnet import VARIANTS, EfficientNetEncoder
 from pldepth_torch.models.layers import TrainPass, reset_parameters
 
@@ -46,6 +48,27 @@ class EffNetFullyFledged(nn.Module):
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
         top, taps = self.encoder(x, train)
         return self.decoder(top, taps, train)
+
+
+class ReDWebFullyFledged(nn.Module):
+    """ResNet-50 encoder + ReDWeb feature-fusion decoder -> (B, H, W, 1) f32
+    depth. ``stage_blocks`` / ``c4_tap_block`` cut the encoder's depth
+    (tests); the registry builds the full one."""
+
+    def __init__(self, dtype: torch.dtype = torch.bfloat16,
+                 stage_blocks: Sequence[int] = (3, 4, 6, 3), c4_tap_block: int = 2,
+                 bn_fold: bool = False, quant=False):
+        super().__init__()
+        self.dtype = dtype
+        self.encoder = resnet.ResNet50Encoder(dtype, stage_blocks, c4_tap_block,
+                                              bn_fold=bn_fold, quant=quant)
+        self.decoder = ReDWebDecoder(resnet.TOP_CH, resnet.TAP_CHANNELS, dtype=dtype,
+                                     bn_fold=bn_fold, quant=quant)
+
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                pixels=None) -> torch.Tensor:
+        c5, taps = self.encoder(x, train)
+        return self.decoder(c5, taps, train, pixels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,9 +99,9 @@ def _effnet(name: str, variant: str):
 
 def _redweb(dtype=torch.bfloat16, fused_tail=True, head_ch=32,
             drop_connect_rate=0.2) -> PLDepthModel:
-    raise NotImplementedError(
-        "ff_redweb (ResNet-50 + ReDWeb decoder) is not ported yet: "
-        "ROADMAP.md queue 1 item 9")
+    # fused_tail / head_ch / drop_connect_rate are EfficientNet-only;
+    # accepted and ignored so the registry's signature stays uniform
+    return PLDepthModel("ff_redweb", lambda **mode: ReDWebFullyFledged(dtype, **mode), "caffe")
 
 
 MODEL_REGISTRY: Dict[str, Callable[..., PLDepthModel]] = {
@@ -117,7 +140,8 @@ def partition_params(names: Iterable[str], freeze_encoder: bool = True) -> Dict[
     the weight bridge's names) "trainable" or "frozen".
 
     Frozen = encoder params that are not batch-norm affine, the reference's
-    BN-only-trainable encoder (pl_hourglass.py:53-57); the rule of
+    BN-only-trainable encoders (pl_hourglass.py:53-57, redweb.py:412-416;
+    BN names "...bn", "..._bn..." or ResNet's "bn1"/"bn2"/"bn3"); the rule of
     ``pldepth_tpu/models/pldepth_net.py:partition_params`` on the same
     path components. BN running statistics always update."""
 

@@ -39,7 +39,7 @@ import torch
 from torch import nn
 
 from pldepth_torch.models.bn_fold import fold_module
-from pldepth_torch.models.layers import Conv
+from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass
 from pldepth_torch.ops.conv import conv2d_same_nhwc
 from pldepth_torch.ops.quant_conv import quant_conv2d
 
@@ -65,9 +65,10 @@ class QuantConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  groups: int = 1, calibrate: bool = False,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, padding: Optional[int] = None):
         super().__init__()
         self.stride, self.groups, self.dtype = stride, groups, dtype
+        self.padding = padding  # None: SAME; else explicit, every side
         self.calibrate = calibrate
         self.register_buffer("kernel_q", torch.zeros(
             kernel, kernel, in_ch // groups, out_ch, dtype=torch.int8))
@@ -96,24 +97,53 @@ class QuantConv(nn.Module):
         if self.calibrate:
             amax = x.to(torch.float32).abs().amax()
             self.amax = amax if self.amax is None else torch.maximum(self.amax, amax)
-            y = conv2d_same_nhwc(x.to(dt), w, self.stride, self.groups)
+            y = conv2d_same_nhwc(x.to(dt), w, self.stride, self.groups, self.padding)
             return (y.to(torch.float32) + self.bias).to(dt)
         if self.groups > 1:
             # depthwise: int8 weights, compute-dtype activations
-            y = conv2d_same_nhwc(x.to(dt), w, self.stride, self.groups)
+            y = conv2d_same_nhwc(x.to(dt), w, self.stride, self.groups, self.padding)
             return y + self.bias.to(dt)
         return quant_conv2d(quantize_activation(x, inv), self.kernel_q, self.w_scale,
-                            self.bias, a_eff, self.stride, out_dtype=dt)
+                            self.bias, a_eff, self.stride, out_dtype=dt,
+                            padding=self.padding)
 
 
 def make_conv(quant, dtype: torch.dtype, in_ch: int, out_ch: int, kernel: int,
-              stride: int = 1, groups: int = 1, bias: bool = True) -> nn.Module:
+              stride: int = 1, groups: int = 1, bias: bool = True,
+              padding: Optional[int] = None) -> nn.Module:
     """The conv at a quantization site: :class:`Conv` normally,
-    :class:`QuantConv` under ``quant`` ("int8" serving or "calib")."""
+    :class:`QuantConv` under ``quant`` ("int8" serving or "calib").
+    ``padding`` None is SAME, an int pads every side by that much."""
     if quant:
         return QuantConv(in_ch, out_ch, kernel, stride, groups,
-                         calibrate=(quant == "calib"), dtype=dtype)
-    return Conv(in_ch, out_ch, kernel, stride, groups, bias, dtype)
+                         calibrate=(quant == "calib"), dtype=dtype, padding=padding)
+    return Conv(in_ch, out_ch, kernel, stride, groups, bias, dtype, padding)
+
+
+class ConvBNScope(nn.Module):
+    """A scope of conv sites, each followed by its BatchNorm unless the graph
+    is folded (``bn_fold`` or ``quant``). BN ``X`` sits beside conv
+    ``X.replace("conv", "bn")``, the flax names and the fold's pairing rule.
+    ``add_conv`` makes the pair (BN eps ``bn_eps``); ``conv_bn`` runs the
+    conv, then its BN, cast to the compute dtype."""
+
+    def __init__(self, dtype: torch.dtype, bn_fold: bool, quant, bn_eps: float = 1e-3):
+        super().__init__()
+        self.dtype, self.quant, self.bn_eps = dtype, quant, bn_eps
+        self.fold = bn_fold or bool(quant)
+
+    def add_conv(self, conv: str, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 bias: bool = True, padding: Optional[int] = None) -> None:
+        self.add_module(conv, make_conv(self.quant, self.dtype, in_ch, out_ch, kernel,
+                                        stride=stride, bias=bias, padding=padding))
+        if not self.fold:
+            self.add_module(conv.replace("conv", "bn"), BatchNorm(out_ch, eps=self.bn_eps))
+
+    def conv_bn(self, x: torch.Tensor, conv: str, train: Optional[TrainPass]) -> torch.Tensor:
+        x = getattr(self, conv)(x)
+        if self.fold:
+            return x
+        return getattr(self, conv.replace("conv", "bn"))(x, train).to(self.dtype)
 
 
 def quant_sites(module: nn.Module) -> Dict[str, QuantConv]:

@@ -34,6 +34,10 @@ SIGNATURES = {
         "fused_mbconv_tiles": (_I, [_I, _I, _I]),
         "fused_mbconv_infer": (_I, [_I] + [_P] * 18 + [_I] * 15 + [_P]),
     },
+    "banded_mbconv": {
+        "banded_mbconv_strips": (_I, [_I, _I]),
+        "banded_mbconv_infer": (_I, [_I] + [_P] * 18 + [_I] * 12 + [_P]),
+    },
     "listmle": {
         "listmle_fwd": (_I, [_P] * 3 + [_I] * 2 + [_P]),
         "listmle_bwd": (_I, [_P] * 4 + [_I] * 2 + [_P]),
@@ -57,7 +61,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers count too: an edited header rebuilds every kernel
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -345,11 +345,13 @@ class Trainer:
 
     @torch.inference_mode()
     def predict_quant(self, qstate: QuantState, images) -> torch.Tensor:
-        """predict() on the int8 serving graph: the stem, every MBConv conv
-        (depthwise with int8 weights and float activations), the top conv and
-        the decoder's 3x3 convs run int8, the dense ones on K4; squeeze-
-        excite, the head and every activation stay float. ``qstate`` comes
-        from ``prepare_quant``."""
+        """predict() on the int8 serving graph: every conv of the model's
+        quantization sites runs int8 (ff_effnet: the stem, every MBConv conv,
+        depthwise with int8 weights and float activations, the top conv and
+        the decoder's 3x3 convs; ff_redweb: every encoder conv and every
+        decoder conv but the head's last two), the dense ones on K4;
+        squeeze-excite, the heads and every activation stay float.
+        ``qstate`` comes from ``prepare_quant``."""
         if not isinstance(qstate, QuantState):
             raise TypeError("predict_quant takes the QuantState of prepare_quant, "
                             f"not {type(qstate).__name__}")

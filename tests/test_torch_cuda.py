@@ -75,6 +75,58 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         k2.fused_mbconv_infer(xd, p, **kw)
 
 
+# K3, the banded MBConv: kernel against its plain version (the band
+# algorithm) at every divisor band of a small shape, and against K2 on the
+# same inputs; the tolerances are K2's.
+K3_CASES = [(3, 1, True, True), (3, 2, True, False), (5, 1, True, True),
+            (5, 2, True, False), (3, 1, False, False), (5, 2, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K3_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain_at_every_band(case, dtype, cuda_device):
+    from pldepth_torch.ops import banded_mbconv as k3
+
+    x, p, kw = _case(case, (24, 34), 2, 40 if case[2] else 24)
+    xd = x.to(cuda_device, dtype)
+    pd = k2.cast_params(k2.MBConvParams(*[None if v is None else v.to(cuda_device) for v in p]),
+                        dtype)
+    ho = 24 // kw["stride"]
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    k2_out = k2.fused_mbconv_infer(xd, pd, **kw).float()
+    for band in [b for b in range(1, ho + 1) if ho % b == 0]:
+        before = k3.banded_mbconv_infer.launches
+        got = k3.banded_mbconv_infer(xd, pd, band_rows=band, **kw).float()
+        torch.cuda.synchronize()
+        assert k3.banded_mbconv_infer.launches == before + 1
+        want = k3.banded_mbconv_plain(xd, pd, band_rows=band, **kw).float()
+        assert got.shape == want.shape == k2_out.shape
+        for ref in (want, k2_out):
+            rel = float((got - ref).abs().max() / ref.abs().max())
+            assert rel <= tol, (band, rel)
+
+
+@pytest.mark.cuda
+def test_k3_has_no_fallback(cuda_device, monkeypatch):
+    """A CUDA tensor launches K3 or raises: never the plain version, and
+    bad operands raise instead of taking another path."""
+    from pldepth_torch.ops import banded_mbconv as k3
+
+    x, p, kw = _case(CASES[0], (8, 8), 1, 8)
+    pd = k2.MBConvParams(*[None if v is None else v.to(cuda_device) for v in p])
+    xd = x.to(cuda_device)
+    monkeypatch.setattr(k3, "banded_mbconv_plain",
+                        lambda *a, **k: (_ for _ in ()).throw(AssertionError("plain")))
+    assert k3.banded_mbconv_infer(xd, pd, **kw).is_cuda
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.banded_mbconv_infer(xd.transpose(1, 2), pd, **kw)
+    with pytest.raises(ValueError, match="is on cpu"):
+        k3.banded_mbconv_infer(xd, p, **kw)
+    with pytest.raises(ValueError, match="must divide"):
+        k3.banded_mbconv_infer(xd, pd, band_rows=3, **kw)
+
+
 @pytest.mark.cuda
 def test_predict_fused_on_the_card_matches_predict(cuda_device):
     from pldepth_torch.core.config import ExperimentConfig

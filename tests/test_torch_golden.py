@@ -63,8 +63,3 @@ def test_golden_names_cover_the_port_model(golden):
     module = get_pl_depth_net("ff_effnet", "float32").make()
     names = {flax_key_to_torch(str(n)) for n in golden["names"]}
     assert names == set(module.state_dict())
-
-
-def test_ff_redweb_not_ported_names_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        get_pl_depth_net("ff_redweb")

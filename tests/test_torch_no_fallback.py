@@ -50,6 +50,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize("module,fn", [
     ("fused_mbconv.py", "fused_mbconv_infer"),
+    ("banded_mbconv.py", "banded_mbconv_infer"),
     ("listmle_kernel.py", "listmle_fwd"),
     ("listmle_kernel.py", "listmle_bwd"),
     ("listmle_kernel.py", "_launch"),

@@ -252,7 +252,7 @@ def test_config_json_precedence_matches_jax():
     (["--qres", "int8"], "item 11"), (["--sparse_tail", "true"], "item 11"),
     (["--uint8_wire", "true"], "item 7"), (["--pack_cache", "x.pack"], "item 7"),
     (["--parity_report", "true"], "item 8"), (["--use_wandb", "true"], "item 12"),
-    (["--model_name", "ff_redweb"], "item 9"), (["--dataset", "IBIMS"], "item 8"),
+    (["--qenc", "int8"], "item 11"), (["--dataset", "IBIMS"], "item 8"),
 ])
 def test_cli_train_unported_options_name_their_item(flags, item, tmp_path):
     from pldepth_torch.cli import main
