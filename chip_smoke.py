@@ -34,23 +34,30 @@ Phases (any failure exits non-zero):
      device memory, the device idle share of a 3-step profiler window with
      the top kernels, and K1 at N=3200, K=5 beside its plain version, its
      bytes bound and one PyTorch call;
-  8. K4 (the int8 matmul) and the int8 serving path: K4 against its plain
-     PyTorch version at the 38 dense int8 site shapes of ff_effnet at
-     448^2, batch 8 (f32 out at rtol = atol = 1e-5, bf16 out within one
-     bf16 ulp), with swish / relu and ragged M, N, K; then seeded
-     synth_weight weights with randomised BN statistics, calibrated on the
-     first batch of 8 seeded 448^2 images, serve 4 batches through
+  8. K4 (the int8 tensor-core matmul and its window read in place) and the
+     int8 serving path: K4 against its plain PyTorch version at the 38 dense
+     int8 sites of ff_effnet at 448^2, batch 8, each through the entry point
+     the graph takes (a window site from a seeded NHWC int8 input against
+     im2col + the plain product): f32 out bit-equal without an activation
+     (rtol = atol = 1e-5 with swish), bf16 out within one bf16 ulp; extras
+     with swish / relu and ragged M, N, K, and ragged windows (odd H and W,
+     Cin 3 / 24 / 40, 3x3 stride 2, 7x7 stride 2 pad 3, 1x1 stride 2); then
+     seeded synth_weight weights with randomised BN statistics, calibrated
+     on the first batch of 8 seeded 448^2 images, serve 4 batches through
      run_pipeline with Trainer.jit_predict("quant"): 32 finite maps, 38 K4
-     launches per forward, predict_quant vs predict_bnfold (rel < 0.15,
+     launches per forward of which 6 window reads, no im2col_same call on
+     the card's route, predict_quant vs predict_bnfold (rel < 0.15,
      pearson > 0.98), predict_bnfold vs predict (bf16 rel <= 3e-2; f32 at
      96^2 rel <= 2e-5), and the K4 route vs the plain route of
      predict_quant (rel <= 1e-2);
   9. serving times of the four modes: served images/s in "quant" mode
      through the pipeline, ms per batch of predict_quant, predict_bnfold,
      predict and predict_fused (alternating rounds), the calibration time,
-     K4 per site beside its plain version, its bound and torch._int_mm
-     plus a torch epilogue, totals per forward, and a profiler breakdown of
-     predict_quant with the device's idle share;
+     a profiler breakdown of predict_quant with the device's idle share,
+     and K4 per site shape beside its plain version, the bound of the work
+     in place (and with the input im2col'd), and the library yardstick
+     im2col + torch._int_mm + a torch epilogue with the im2col's share,
+     totals per forward (K4 must beat the yardstick's total);
  10. K3 (the banded MBConv) at the four B0 stage-2/3 blocks at 448^2, batch
      8, whole blocks: against its plain version (the band algorithm) and
      against K2 on the same inputs, bf16 and f32, at the default band and a
@@ -71,10 +78,12 @@ Phases (any failure exits non-zero):
      fold must fail it); the f32 model against the TF
      golden at 96^2 (infer rel < 5e-5, train rel < 5e-4); --quantize int8:
      K4 against its plain version at every ff_redweb site shape, 4 int8
-     batches through run_pipeline with 96 K4 launches per forward, the K4
-     route vs the plain route (rel <= 1e-2), quant vs bn_fold recorded;
-     ms per batch of predict_bnfold, predict and predict_quant, served
-     images/s, and the idle share of predict_bnfold.
+     batches through run_pipeline with 96 K4 launches per forward (42
+     window reads, no im2col_same call), the K4 route vs the plain route
+     (rel <= 1e-2), quant vs bn_fold recorded; ms per batch of
+     predict_bnfold, predict and predict_quant, served images/s, the idle
+     shares of predict_bnfold and predict_quant, and K4 per site shape as
+     in phase 9.
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -107,12 +116,23 @@ BATCH_TRAIN, N_TRAIN, N_VAL, EPOCHS = 32, 64, 32, 10  # 2 steps + 1 val batch pe
 K4_TOL = 1e-5  # f32 out: rtol = atol (tests/test_quantize.py:135)
 K4_SITES = 38  # dense int8 sites of one ff_effnet forward
 K4_SITES_REDWEB = 96  # of one ff_redweb forward: 53 encoder, 43 decoder
+# of which read a window in place (k > 1 or stride 2): ff_effnet's stem and
+# five decoder 3x3s; ff_redweb's 7x7 stem, 35 3x3s and 6 downsampling 1x1s
+K4_WINDOWS, K4_WINDOWS_REDWEB = 6, 42
 SPIN_KERNELS = 8  # opening each profiler window (kernel_window)
 K3_BLOCKS = ("stage2_block0", "stage2_block1", "stage3_block0", "stage3_block1")
 # K4 with an activation, and ragged M (not a multiple of 64), N (not of 16)
 # and K (not of 4 or of 64): (M, K, N, act)
 K4_EXTRA = [(6272, 480, 112, "swish"), (25088, 240, 40, "relu"), (997, 27, 5, None),
             (1000, 250, 37, "swish"), (129, 70, 70, "relu"), (65, 4, 33, None)]
+# ragged window reads: (batch, H, W, Cin, Cout, window, stride, padding, act);
+# odd and even sizes at stride 2, Cin 3 / 24 / 40, the 7x7 pad-3 stem, 1x1
+# stride 2, odd Cout
+K4_CONV_EXTRA = [(2, 57, 43, 3, 16, 3, 2, None, "swish"), (2, 56, 44, 3, 32, 3, 2, None, None),
+                 (2, 56, 44, 24, 40, 3, 2, None, "relu"), (2, 33, 31, 40, 24, 3, 1, None, "swish"),
+                 (2, 33, 31, 64, 48, 1, 2, None, None), (2, 34, 32, 64, 48, 1, 2, None, "relu"),
+                 (2, 45, 51, 3, 64, 7, 2, 3, "relu"), (2, 44, 52, 3, 64, 7, 2, 3, None),
+                 (3, 15, 17, 128, 37, 7, 2, 3, None), (1, 5, 5, 16, 8, 3, 1, None, None)]
 
 
 def fail(msg: str) -> None:
@@ -443,12 +463,12 @@ def train_times(trainer, state, cfg, smi: str, device="cuda"):
             "profile": prof}
 
 
-def kernel_window(fn, reps: int):
+def kernel_window(fn, reps: int, spin: int = SPIN_KERNELS):
     """One profiler window of ``reps`` calls of ``fn``, after one call
     outside it: (the profiler's key_averages, {kernel name: device ms per
     call} (host launch gaps excluded), kernels launched in the window).
-    The window opens with a few spin kernels, left out of the result: the
-    first launches of a window can go missing."""
+    The window opens with ``spin`` spin kernels, left out of the result:
+    the first launches of a window can go missing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -456,7 +476,7 @@ def kernel_window(fn, reps: int):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(SPIN_KERNELS):
+        for _ in range(spin):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         for _ in range(reps):
@@ -469,34 +489,69 @@ def kernel_window(fn, reps: int):
             sum(e.count for e in events))
 
 
-def full_windows(fn, reps: int, what: str, per_call=None, n=None, tries: int = 6):
+def full_windows(fn, reps: int, what: str, per_call=None, n=None, tries: int = 6,
+                 fatal: bool = True):
     """{kernel name: device ms per call} of ``n`` profiler windows of
     ``reps`` calls of ``fn`` that hold every kernel it launched. A window
-    can come back with kernels missing (seen: a window summing to 0.0 ms);
-    it then counts fewer launches than expected (``per_call`` launches per
-    call, where known) or than the fullest window, and is taken again.
-    ``n`` defaults to 1 where ``per_call`` is known, else 2 (two windows
-    that agree). Fails after ``tries`` windows without ``n`` full ones."""
+    can come back with kernels missing (seen: a window summing to 0.0 ms; 2
+    of 5 launches in six windows running); it then counts fewer launches
+    than expected (``per_call`` launches per call, where known) or than the
+    fullest window, and is taken again, with twice the spin kernels at its
+    head each time. ``n`` defaults to 1 where ``per_call`` is known, else 2
+    (two windows that agree). After ``tries`` windows without ``n`` full
+    ones it fails, or returns None where ``fatal`` is false."""
     n = n or (1 if per_call else 2)
     seen = []
-    for _ in range(tries):
-        seen.append(kernel_window(fn, reps)[1:])
+    for attempt in range(tries):
+        seen.append(kernel_window(fn, reps, SPIN_KERNELS << min(attempt, 4))[1:])
         most = max(c for _, c in seen)
         full = [w for w, c in seen if c == most]
         if len(full) >= n and (per_call is None or most == per_call * reps):
             return full[:n]
+    if not fatal:
+        log(f"{what}: fewer than {n} of {tries} profiler windows held all its kernels "
+            f"(launches per window of {reps} calls: {[c for _, c in seen]})")
+        return None
     fail(f"{what}: fewer than {n} of {tries} profiler windows held all its kernels "
          f"(launches per window of {reps} calls: {[c for _, c in seen]}"
          + (f", expected {per_call * reps})" if per_call else ")"))
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device-timeline time per call of ``fn``: ``reps`` calls captured into
+    one CUDA graph and replayed between two events, so the host launches
+    nothing in between (a few tenths of a microsecond of gap a kernel
+    remain, which the profiler's durations leave out)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, reps: int, what: str, per_call=None, n=None) -> float:
     """Device time per call of ``fn``: the sum of its kernels' durations,
-    the median over full_windows."""
+    the median over full_windows; where the profiler keeps losing launches,
+    graph_ms instead (logged)."""
     import numpy as np
 
-    return float(np.median([sum(w.values())
-                            for w in full_windows(fn, reps, what, per_call, n)]))
+    windows = full_windows(fn, reps, what, per_call, n, fatal=False)
+    if windows is None:
+        ms = graph_ms(fn, reps)
+        log(f"{what}: timed by CUDA-graph replay instead, {ms:.4f} ms per call")
+        return ms
+    return float(np.median([sum(w.values()) for w in windows]))
 
 
 def profile_idle(fn, n: int, unprofiled_ms: float, smi: str, what: str):
@@ -625,23 +680,29 @@ def k1_times(smi: str, n: int = BATCH_TRAIN * 100, k: int = 5, device="cuda"):
 
 @contextlib.contextmanager
 def plain_k4_route():
-    """Route the int8 conv sites to K4's plain version (f64 product on the
-    card) for the duration: the reference route of phase 8."""
-    from pldepth_torch.ops import quant_conv
-    from pldepth_torch.ops import quant_matmul as k4
+    """Route the int8 conv sites to K4's plain version (im2col, then an f64
+    product on the card) for the duration: the reference route of phase 8."""
+    from pldepth_torch.models import quantize
+    from pldepth_torch.ops.quant_conv import quant_conv2d_plain
 
-    saved = quant_conv.quant_matmul
-    quant_conv.quant_matmul = k4.quant_matmul_plain
+    def plain(q, kernel_q, w_scale, bias, a_scale, stride=1, out_dtype=None, padding=None,
+              act=None, w_packed=None):
+        return quant_conv2d_plain(q, kernel_q, w_scale, bias, a_scale, stride, out_dtype,
+                                  padding, act)
+
+    saved = quantize.quant_conv2d
+    quantize.quant_conv2d = plain
     try:
         yield
     finally:
-        quant_conv.quant_matmul = saved
+        quantize.quant_conv2d = saved
 
 
 def k4_sites(trainer, qstate, batch: int, size: int):
     """The dense int8 sites of one forward in order: dicts with name, M, K,
-    N and the QuantConv, from a batch-1 forward on the plain route (M
-    scaled to ``batch``)."""
+    N, the window (size, stride, padding), the input's (H, W, Cin), whether
+    the site reads a window in place, and the QuantConv; from a batch-1
+    forward on the plain route (M scaled to ``batch``)."""
     import torch
 
     from pldepth_torch.models.quantize import quant_sites
@@ -652,7 +713,10 @@ def k4_sites(trainer, qstate, batch: int, size: int):
             def hook(m, inputs, out, name=name):
                 kh, kw, cin, cout = m.kernel_q.shape
                 rows.append({"site": name, "m": batch * out.shape[1] * out.shape[2],
-                             "k": kh * kw * cin, "n": cout, "mod": m})
+                             "k": kh * kw * cin, "n": cout, "mod": m, "batch": batch,
+                             "h": inputs[0].shape[1], "w": inputs[0].shape[2], "cin": cin,
+                             "ksize": kh, "stride": m.stride, "padding": m.padding,
+                             "window": kh > 1 or m.stride > 1})
             hooks.append(mod.register_forward_hook(hook))
     with plain_k4_route():
         trainer.predict_quant(qstate, torch.zeros((1, size, size, 3), device="cuda"))
@@ -661,40 +725,103 @@ def k4_sites(trainer, qstate, batch: int, size: int):
     return rows
 
 
-def k4_operands(m: int, k: int, n: int, mod=None, seed: int = 0):
-    """Seeded int8 x (M, K) on the card, and the site's packed weights, or
-    seeded ones of the same kind where ``mod`` is None."""
+def site_shape(s):
+    """What makes two sites the same K4 problem."""
+    return tuple(s[key] for key in ("m", "k", "n", "h", "w", "ksize", "stride", "padding"))
+
+
+def k4_case(s, seed: int = 0):
+    """Seeded operands of one K4 case on the card. ``s`` is a site
+    (k4_sites) or an extra with the same keys and ``mod`` None. Returns the
+    three ways to compute it: K4 (through the entry point the serving graph
+    takes for it, from the NHWC int8 input where it reads a window), its
+    plain version (im2col + the plain product), and the library yardstick
+    (im2col + torch._int_mm + a torch epilogue), plus the im2col alone."""
     import torch
+    import torch.nn.functional as F
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=g)
-    if mod is not None:
-        _, _, a_eff = mod.derived()
-        return x, mod.kernel_q.reshape(k, n).contiguous(), mod.w_scale, mod.bias, a_eff
-    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device="cuda", generator=g)
-    ws = torch.rand(n, device="cuda", generator=g) * 0.01 + 1e-3
-    b = torch.randn(n, device="cuda", generator=g) * 0.1
-    return x, w, ws, b, torch.tensor(0.05 / max(1, k) ** 0.5, device="cuda")
-
-
-def check_k4(sites, extras=K4_EXTRA):
-    """Phase 8 (1): K4 against its plain version at every site shape and
-    ``extras``, f32 and bf16 out. Returns (rows, max|d| of the bf16 outputs
-    at the site shapes)."""
-    import torch
-
+    from pldepth_torch.ops import quant_conv as qc
     from pldepth_torch.ops import quant_matmul as k4
 
-    cases = [(s["site"], s["m"], s["k"], s["n"], None, s["mod"]) for s in sites]
-    cases += [(f"extra{i}", m, k, n, act, None) for i, (m, k, n, act) in enumerate(extras)]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m, k, n, mod = s["m"], s["k"], s["n"], s.get("mod")
+    conv = (s["ksize"], s["stride"], s["padding"]) if s.get("window") else None
+    shape = (s["batch"], s["h"], s["w"], s["cin"]) if conv else (m, k)
+    x = torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda", generator=g)
+    if mod is not None:
+        _, _, a = mod.derived()
+        w, ws, b, packed = mod.kernel_q, mod.w_scale, mod.bias, mod.packed_weight()
+    else:
+        wshape = (conv[0], conv[0], s["cin"], n) if conv else (k, n)
+        w = torch.randint(-127, 128, wshape, dtype=torch.int8, device="cuda", generator=g)
+        ws = torch.rand(n, device="cuda", generator=g) * 0.01 + 1e-3
+        b = torch.randn(n, device="cuda", generator=g) * 0.1
+        a = torch.tensor(0.05 / max(1, k) ** 0.5, device="cuda")
+        packed = qc.pack_kernel(w) if conv else k4.pack_weight(w)
+    w2 = w.reshape(k, n)
+
+    def kernel(act=None, dt=torch.bfloat16):
+        if conv:
+            return qc.quant_conv2d(x, w, ws, b, a, conv[1], dt, conv[2], act,
+                                   w_packed=packed).reshape(m, n)
+        return k4.quant_matmul(x, w2, ws, b, a, act, dt, w_packed=packed)
+
+    def plain(act=None, dt=torch.bfloat16):
+        if conv:
+            return qc.quant_conv2d_plain(x, w, ws, b, a, conv[1], dt, conv[2], act).reshape(m, n)
+        return k4.quant_matmul_plain(x, w2, ws, b, a, act, dt)
+
+    def im2col():
+        return qc.im2col_same(x, *conv).contiguous() if conv else x
+
+    # _int_mm takes K and N in multiples of 8 only; zero columns add nothing
+    pad, pad_n = -k % 8, -n % 8
+    w_lib = F.pad(w2, (0, pad_n, 0, pad)).contiguous()
+
+    def library():
+        cols = im2col()
+        acc = torch._int_mm(F.pad(cols, (0, pad)) if pad else cols, w_lib)[:, :n]
+        return (acc.float() * (ws * a) + b).to(torch.bfloat16)
+
+    # a window site whose channels the wrapper pads to 4 (a stem) launches
+    # the pad's kernels beside K4's one
+    return {"kernel": kernel, "plain": plain, "library": library, "im2col": im2col,
+            "k_padded": bool(pad),
+            "kernels_per_call": None if conv and s["cin"] % qc.CIN_ALIGN else 1}
+
+
+def k4_extras(extras=K4_EXTRA, conv_extras=K4_CONV_EXTRA):
+    """The extra cases as site-like dicts (with ``act``)."""
+    from pldepth_torch.ops.quant_conv import _out_hw
+
+    rows = [{"site": f"extra{i}", "m": m, "k": k, "n": n, "act": act}
+            for i, (m, k, n, act) in enumerate(extras)]
+    for i, (b, h, w, cin, cout, ks, stride, padding, act) in enumerate(conv_extras):
+        ho, wo, _ = _out_hw(h, w, ks, stride, padding)
+        rows.append({"site": f"window{i}", "m": b * ho * wo, "k": ks * ks * cin, "n": cout,
+                     "batch": b, "h": h, "w": w, "cin": cin, "ksize": ks, "stride": stride,
+                     "padding": padding, "window": True, "act": act})
+    return rows
+
+
+def check_k4(sites, extras=None):
+    """Phase 8 (1): K4 against its plain version at every site shape (the
+    window sites through the window entry point, from a seeded NHWC input,
+    against im2col + the plain product) and ``extras``, f32 and bf16 out.
+    Returns (rows, max|d| of the bf16 outputs at the site shapes)."""
+    import torch
+
+    cases = list(sites) + list(k4_extras() if extras is None else extras)
     rows, max_err = [], 0.0
-    for i, (name, m, k, n, act, mod) in enumerate(cases):
-        ops = k4_operands(m, k, n, mod, seed=500 + i)
-        row = {"case": name, "m": m, "k": k, "n": n, "act": act}
+    for i, s in enumerate(cases):
+        name, m, k, n, act = s["site"], s["m"], s["k"], s["n"], s.get("act")
+        case = k4_case(s, seed=500 + i)
+        row = {"case": name, "m": m, "k": k, "n": n, "act": act,
+               "window": bool(s.get("window"))}
         for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-            got = k4.quant_matmul(*ops, act=act, out_dtype=dt).float()
+            got = case["kernel"](act, dt).float()
             torch.cuda.synchronize()
-            want = k4.quant_matmul_plain(*ops, act=act, out_dtype=dt).float()
+            want = case["plain"](act, dt).float()
             if got.shape != (m, n) or not torch.isfinite(got).all():
                 fail(f"K4 {name} {dname}: shape {tuple(got.shape)} or non-finite")
             d = (got - want).abs()
@@ -705,18 +832,48 @@ def check_k4(sites, extras=K4_EXTRA):
                 bad = int((d > ulp).sum())
             err = float(d.max())
             row[dname] = {"max_abs_err": err, "rel": err / max(float(want.abs().max()), 1e-12),
-                          "outside_tol": bad}
+                          "outside_tol": bad, "bit_equal": bool(torch.equal(got, want))}
             if bad:
                 fail(f"K4 {name} {dname} (M {m}, K {k}, N {n}, act {act}): {bad} values "
                      f"outside the tolerance, max|d| {err:.3e}")
-            if dname == "bfloat16" and mod is not None:
+            if dname == "bfloat16" and s.get("mod") is not None:
                 max_err = max(max_err, err)
+        if act != "swish" and not row["float32"]["bit_equal"]:
+            fail(f"K4 {name}: f32 out is not bit-equal to the plain version (max|d| "
+                 f"{row['float32']['max_abs_err']:.3e}); the int32 sum and the epilogue are exact")
         rows.append(row)
-        log(f"K4 vs plain {name:36s} M {m:6d} K {k:5d} N {n:4d} act {str(act):5s}: f32 max|d| "
-            f"{row['float32']['max_abs_err']:.3e}, bf16 max|d| "
-            f"{row['bfloat16']['max_abs_err']:.3e} "
+        where = (f"window {s['ksize']}x{s['ksize']} s{s['stride']} pad {s['padding']} of "
+                 f"({s['batch']}, {s['h']}, {s['w']}, {s['cin']})" if s.get("window") else "product")
+        log(f"K4 vs plain {name:36s} M {m:6d} K {k:5d} N {n:4d} act {str(act):5s} {where}: f32 "
+            f"max|d| {row['float32']['max_abs_err']:.3e} (bit-equal "
+            f"{row['float32']['bit_equal']}), bf16 max|d| {row['bfloat16']['max_abs_err']:.3e} "
             f"(f32 {K4_TOL:g} + {K4_TOL:g}|ref|, bf16 1 ulp)")
     return rows, max_err
+
+
+def k4_counts(reset: bool = False):
+    """(K4 launches, of which window reads, im2col_same calls) so far."""
+    from pldepth_torch.ops import quant_conv as qc
+    from pldepth_torch.ops import quant_matmul as k4
+
+    if reset:
+        k4.quant_matmul.launches = qc.quant_conv2d.window_launches = qc.im2col_same.calls = 0
+    return k4.quant_matmul.launches, qc.quant_conv2d.window_launches, qc.im2col_same.calls
+
+
+def gate_k4_path(what: str, forwards: int, sites: int, windows: int):
+    """Fail unless the run since ``k4_counts(reset=True)`` launched K4
+    ``sites`` times a forward, ``windows`` of them window reads, and built
+    no patch matrix. Returns the launches."""
+    launches, window_reads, patches = k4_counts()
+    log(f"{what}: K4 launches {launches} over {forwards} forwards, {window_reads} of them "
+        f"window reads in place; im2col_same calls {patches}")
+    if launches != sites * forwards or window_reads != windows * forwards:
+        fail(f"{what}: K4 launched {launches} times ({window_reads} window reads) over "
+             f"{forwards} forwards, expected {sites} ({windows}) each")
+    if patches:
+        fail(f"{what}: {patches} patch matrices were built on the card's route")
+    return launches
 
 
 def _rel_pearson(a, b):
@@ -733,7 +890,6 @@ def quant_phase(decode, chunks, gtr, gstate, smi: str):
 
     from pldepth_torch.core.config import ExperimentConfig
     from pldepth_torch.models.pretrained import flax_from_state_dict, overlay_synthetic
-    from pldepth_torch.ops import quant_matmul as k4
     from pldepth_torch.train import Trainer
 
     rec = {}
@@ -761,21 +917,18 @@ def quant_phase(decode, chunks, gtr, gstate, smi: str):
     if len(sites) != K4_SITES:
         fail(f"expected {K4_SITES} dense int8 sites, found {len(sites)}")
     macs = sum(s["m"] * s["k"] * s["n"] for s in sites)
-    log(f"{len(sites)} dense int8 sites, {macs / 1e9:.2f} G multiply-adds per forward of "
-        f"{BATCH_SERVE} at {SIZE}^2")
+    log(f"{len(sites)} dense int8 sites ({sum(s['window'] for s in sites)} read a window), "
+        f"{macs / 1e9:.2f} G multiply-adds per forward of {BATCH_SERVE} at {SIZE}^2")
     rec["k4_checks"], rec["k4_max_abs_err"] = check_k4(sites)
 
     serve = trainer.jit_predict(fused="quant")
-    k4.quant_matmul.launches = 0
+    k4_counts(reset=True)
     n, rec["pipeline_s_cold"] = serve_maps(lambda imgs: serve(qstate, imgs), chunks,
                                            lambda c: first if c is chunks[0] else decode(c),
                                            SIZE, "int8 serving")
-    launches = k4.quant_matmul.launches
-    log(f"served {n} int8 depth maps (448, 448), finite; K4 launches {launches} over "
-        f"{len(chunks)} forwards")
-    if launches != K4_SITES * len(chunks):
-        fail(f"K4 launched {launches} times over {len(chunks)} forwards, expected {K4_SITES} each")
-    rec["k4_launches_main_path"] = launches
+    log(f"served {n} int8 depth maps (448, 448), finite")
+    rec["k4_launches_main_path"] = gate_k4_path("ff_effnet int8 serving", len(chunks), K4_SITES,
+                                                K4_WINDOWS)
 
     imgs = torch.from_numpy(first).cuda()
     pq = trainer.predict_quant(qstate, imgs).float().cpu()
@@ -809,69 +962,84 @@ def gold_images():
         return gold["x_raw"] / 255.0
 
 
-def k4_cost(m: int, k: int, n: int):
-    """(bytes, ops) of one K4 call: x, w, w_scale, bias and a_scale read
-    once, the bf16 output written once; 2 M K N int8 operations."""
-    return m * k + k * n + 8 * n + 4 + 2 * m * n, 2 * m * k * n
+def k4_cost(s):
+    """(bytes in place, bytes with the input im2col'd, ops) of one K4 site:
+    the int8 input read once (the NHWC activation in place, or no more than
+    the windows cover where the stride passes the window, a 1x1 at stride
+    2; or the (M, K) patch matrix, the bound earlier records state), the
+    weight, w_scale, bias and a_scale read once, the bf16 output written
+    once; 2 M K N int8 operations."""
+    m, k, n = s["m"], s["k"], s["n"]
+    rest = k * n + 8 * n + 4 + 2 * m * n
+    in_place = min(s["batch"] * s["h"] * s["w"] * s["cin"], m * k) if s["window"] else m * k
+    return in_place + rest, m * k + rest, 2 * m * k * n
 
 
-def k4_times(sites, smi: str, reps: int = 5):
-    """Phase 9: K4 per site beside its plain version, its bound and
-    torch._int_mm plus a torch epilogue (device time per call)."""
-    import torch
-    import torch.nn.functional as F
+def k4_graph_ms(prof) -> float:
+    """K4's device ms per forward in a profile_idle record."""
+    return sum(ms for name, ms in prof["kernels_ms"].items() if "k4_kernel" in name)
 
-    from pldepth_torch.ops import quant_matmul as k4
 
-    def library(x, w, ws, b, a):
-        acc = torch._int_mm(x, w)
-        return (acc.float() * (ws * a) + b).to(torch.bfloat16)
-
-    def library_padded(x, w, ws, b, a):
-        # _int_mm takes K in multiples of 8 only; zero columns add nothing
-        pad = -x.shape[1] % 8
-        return library(F.pad(x, (0, pad)), F.pad(w, (0, 0, 0, pad)), ws, b, a)
-
+def k4_times(sites, smi: str, model: str, reps: int = 5):
+    """Phase 9: K4 per site shape (through the entry point the graph takes,
+    from the NHWC input where it reads a window) beside its plain version,
+    the bound of the work in place, the bound with the input im2col'd, and
+    the library yardstick im2col + torch._int_mm + a torch epilogue with
+    the im2col's share; device time per call. Sites of one shape are timed
+    once. Returns (rows per shape, totals per forward)."""
+    shapes = {}
+    for s in sites:
+        shapes.setdefault(site_shape(s), []).append(s)
     rows = []
-    for i, s in enumerate(sites):
+    for i, group in enumerate(shapes.values()):
+        s = group[0]
         m, k, n = s["m"], s["k"], s["n"]
-        ops = k4_operands(m, k, n, s["mod"], seed=900 + i)
-        nb, no = k4_cost(m, k, n)
-        row = {"site": s["site"], "m": m, "k": k, "n": n,
-               "ms": device_ms(lambda: k4.quant_matmul(*ops), reps, f"K4 {s['site']}",
-                               per_call=1),
-               "plain_ms": device_ms(lambda: k4.quant_matmul_plain(*ops), reps,
-                                     f"K4 plain {s['site']}"),
-               "bytes": nb, "ops": no, "bytes_ms": nb / HBM_BYTES_PER_S * 1e3,
-               "ops_ms": no / PEAK_FLOPS["int8"] * 1e3}
+        case = k4_case(s, seed=900 + i)
+        nb, nb_cols, no = k4_cost(s)
+        row = {"site": s["site"], "count": len(group), "m": m, "k": k, "n": n,
+               "window": s["window"], "ksize": s["ksize"], "stride": s["stride"],
+               "ms": device_ms(case["kernel"], reps, f"K4 {s['site']}",
+                               per_call=case["kernels_per_call"]),
+               "plain_ms": device_ms(case["plain"], reps, f"K4 plain {s['site']}"),
+               "library_ms": device_ms(case["library"], reps, f"_int_mm {s['site']}"),
+               "im2col_ms": (device_ms(case["im2col"], reps, f"im2col {s['site']}")
+                             if s["window"] else 0.0),
+               "library_k_padded": case["k_padded"],
+               "bytes": nb, "bytes_im2col": nb_cols, "ops": no,
+               "bytes_ms": nb / HBM_BYTES_PER_S * 1e3, "ops_ms": no / PEAK_FLOPS["int8"] * 1e3}
         row["bound_ms"], row["bound_by"] = bound_ms(nb, no, PEAK_FLOPS["int8"])
-        try:
-            library(*ops)
-            row["library_ms"], row["library_note"] = device_ms(
-                lambda: library(*ops), reps, f"_int_mm {s['site']}"), ""
-        except RuntimeError as e:  # a measurement yardstick only: the port never calls it
-            row["library_ms"], row["library_note"] = None, str(e).splitlines()[0][:160]
-            row["library_padded_ms"] = device_ms(lambda: library_padded(*ops), reps,
-                                                 f"_int_mm padded {s['site']}")
+        row["bound_im2col_ms"], _ = bound_ms(nb_cols, no, PEAK_FLOPS["int8"])
         row["tops"] = no / (row["ms"] * 1e-3) / 1e12
+        row["over_bound"] = row["ms"] / row["bound_ms"]
         rows.append(row)
-        lib = (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
-               else f"n/a ({row['library_note']}); with K zero-padded to a multiple of 8 "
-                    f"{row['library_padded_ms']:.4f} ms")
-        log(f"K4 {s['site']:36s} M {m:6d} K {k:5d} N {n:4d}: {row['ms']:.4f} ms "
-            f"({row['tops']:.1f} TOP/s), plain {row['plain_ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), _int_mm+epilogue {lib} [{smi}]")
-    tot = {key: sum(r[key] for r in rows) for key in ("ms", "plain_ms", "bound_ms", "bytes_ms",
-                                                      "ops_ms")}
-    # the library total covers every site: where _int_mm refuses K, its
-    # zero-padded call
-    tot["library_ms"] = sum(r["library_ms"] if r["library_ms"] is not None
-                            else r["library_padded_ms"] for r in rows)
-    tot["library_padded_sites"] = [r["site"] for r in rows if r["library_ms"] is None]
-    log(f"K4 per forward ({len(rows)} sites, batch {BATCH_SERVE}): {tot['ms']:.3f} ms, plain "
-        f"{tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f}, "
-        f"ops {tot['ops_ms']:.4f}); _int_mm+epilogue {tot['library_ms']:.3f} ms (K zero-padded "
-        f"at {tot['library_padded_sites']}) [{smi}]")
+        log(f"K4 {model} {s['site']:34s} x{len(group)} M {m:6d} K {k:5d} N {n:4d} "
+            f"{'window' if s['window'] else 'product'}: {row['ms']:.4f} ms "
+            f"({row['tops']:.1f} TOP/s, {row['over_bound']:.1f}x bound), plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"im2col'd {row['bound_im2col_ms']:.4f}), im2col+_int_mm+epilogue "
+            f"{row['library_ms']:.4f} ms (im2col {row['im2col_ms']:.4f}"
+            f"{', K zero-padded' if row['library_k_padded'] else ''}) [{smi}]")
+        if row["ms"] > row["library_ms"]:
+            log(f"  NOTE: K4 is slower than the library yardstick at {s['site']}")
+    tot = {key: sum(r[key] * r["count"] for r in rows)
+           for key in ("ms", "plain_ms", "library_ms", "im2col_ms", "bound_ms", "bound_im2col_ms",
+                       "bytes_ms", "ops_ms", "bytes", "bytes_im2col", "ops")}
+    tot["slower_than_library"] = [r["site"] for r in rows if r["ms"] > r["library_ms"]]
+    tot["over_twice_bound"] = [r["site"] for r in rows if r["over_bound"] > 2]
+    log(f"K4 per {model} forward ({len(sites)} sites, {len(rows)} shapes, batch {BATCH_SERVE}): "
+        f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, bound in place "
+        f"{tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f}: {tot['bytes'] / 1e6:.0f} MB, ops "
+        f"{tot['ops_ms']:.4f}), bound im2col'd {tot['bound_im2col_ms']:.4f} ms "
+        f"({tot['bytes_im2col'] / 1e6:.0f} MB); im2col+_int_mm+epilogue {tot['library_ms']:.3f} ms "
+        f"(im2col {tot['im2col_ms']:.3f}); slower than the library at "
+        f"{tot['slower_than_library']}; {len(tot['over_twice_bound'])} shapes above twice their "
+        f"bound [{smi}]")
+    for r in sorted(rows, key=lambda r: -r["ms"] * r["count"])[:10]:
+        log(f"  slowest: {r['site']:34s} x{r['count']} {r['ms']:.4f} ms each, "
+            f"{r['over_bound']:.1f}x its bound ({r['bound_by']})")
+    if tot["ms"] >= tot["library_ms"]:
+        fail(f"K4 per {model} forward ({tot['ms']:.3f} ms) does not beat im2col + _int_mm + "
+             f"epilogue ({tot['library_ms']:.3f} ms)")
     return rows, tot
 
 
@@ -1091,7 +1259,6 @@ def redweb_serve_phase(decode, chunks, smi: str):
     from pldepth_torch.core.config import ExperimentConfig
     from pldepth_torch.models.layers import TrainPass
     from pldepth_torch.models.pretrained import flax_from_state_dict, overlay_synthetic
-    from pldepth_torch.ops import quant_matmul as k4
     from pldepth_torch.train import Trainer
 
     rec = {}
@@ -1162,23 +1329,20 @@ def redweb_serve_phase(decode, chunks, smi: str):
         fail(f"expected {K4_SITES_REDWEB} dense int8 sites in ff_redweb, found {len(sites)}")
     shapes = {}
     for site in sites:
-        shapes.setdefault((site["m"], site["k"], site["n"]), site)
+        shapes.setdefault(site_shape(site), site)
     macs = sum(site["m"] * site["k"] * site["n"] for site in sites)
-    log(f"ff_redweb: {len(sites)} dense int8 sites ({len(shapes)} shapes), "
+    log(f"ff_redweb: {len(sites)} dense int8 sites ({len(shapes)} shapes; "
+        f"{sum(site['window'] for site in sites)} read a window), "
         f"{macs / 1e9:.2f} G multiply-adds per forward of {BATCH_SERVE} at {SIZE}^2")
     rec["k4_checks"], rec["k4_max_abs_err"] = check_k4(list(shapes.values()), extras=())
 
     qserve = trainer.jit_predict(fused="quant")
-    k4.quant_matmul.launches = 0
+    k4_counts(reset=True)
     n, _ = serve_maps(lambda imgs: qserve(qstate, imgs), chunks,
                       lambda c: first if c is chunks[0] else decode(c), SIZE, "ff_redweb int8")
-    launches = k4.quant_matmul.launches
-    log(f"served {n} ff_redweb int8 depth maps, finite; K4 launches {launches} over "
-        f"{len(chunks)} forwards")
-    if launches != K4_SITES_REDWEB * len(chunks):
-        fail(f"K4 launched {launches} times over {len(chunks)} ff_redweb forwards, expected "
-             f"{K4_SITES_REDWEB} each")
-    rec["k4_launches_main_path"] = launches
+    log(f"served {n} ff_redweb int8 depth maps, finite")
+    rec["k4_launches_main_path"] = gate_k4_path("ff_redweb int8 serving", len(chunks),
+                                                K4_SITES_REDWEB, K4_WINDOWS_REDWEB)
     pq = trainer.predict_quant(qstate, imgs).float().cpu()
     with plain_k4_route():
         pq_plain = trainer.predict_quant(qstate, imgs).float().cpu()
@@ -1216,18 +1380,14 @@ def redweb_serve_phase(decode, chunks, smi: str):
                                                       chunks, smi, "ff_redweb bn_fold")
     rec["bnfold_profile"] = profile_idle(fns["predict_bnfold"], 3, times["predict_bnfold"], smi,
                                          "ff_redweb predict_bnfold")
-    # K4 in ff_redweb's int8 graph: its 96 launches' device time per forward
-    # beside the bound of its 96 sites
+    # K4 in ff_redweb's int8 graph: its 96 launches' device time per forward,
+    # then each site shape on its own beside its bounds and the library
     rec["quant_profile"] = prof = profile_idle(fns["predict_quant"], 3, times["predict_quant"],
                                                smi, "ff_redweb predict_quant")
-    nb, no = (sum(k4_cost(site["m"], site["k"], site["n"])[i] for site in sites) for i in (0, 1))
-    rec["k4_graph"] = {"ms": sum(ms for n, ms in prof["kernels_ms"].items()
-                                 if "quant_matmul_kernel" in n),
-                       "bytes": nb, "ops": no}
-    rec["k4_graph"]["bound_ms"], rec["k4_graph"]["bound_by"] = bound_ms(nb, no, PEAK_FLOPS["int8"])
-    log(f"K4 in the ff_redweb int8 graph: {rec['k4_graph']['ms']:.3f} ms per forward of "
-        f"{BATCH_SERVE} ({K4_SITES_REDWEB} launches), bound {rec['k4_graph']['bound_ms']:.4f} ms "
-        f"({rec['k4_graph']['bound_by']}: {nb} B, {no / 1e9:.1f} G int8 ops) [{smi}]")
+    rec["k4_graph_ms"] = k4_graph_ms(prof)
+    log(f"K4 in the ff_redweb int8 graph: {rec['k4_graph_ms']:.3f} ms per forward of "
+        f"{BATCH_SERVE} ({K4_SITES_REDWEB} launches) [{smi}]")
+    rec["k4_sites"], rec["k4_totals"] = k4_times(sites, smi, "ff_redweb")
     return rec
 
 
@@ -1250,6 +1410,9 @@ def serving_times(trainer, state, qstate, decode, chunks, smi: str):
     rec["batch_ms"], rec["batch_ms_samples"] = times, samples
     rec["quant_profile"] = profile_idle(fns["predict_quant"], 3, times["predict_quant"], smi,
                                         "predict_quant")
+    rec["k4_graph_ms"] = k4_graph_ms(rec["quant_profile"])
+    log(f"K4 in the ff_effnet int8 graph: {rec['k4_graph_ms']:.3f} ms per forward of "
+        f"{BATCH_SERVE} ({K4_SITES} launches) [{smi}]")
     return rec
 
 
@@ -1282,6 +1445,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     record = {"torch": torch.__version__, "cuda": torch.version.cuda}
 
+    started = time.time()
+    record["phase_end_s"] = {}
+
+    def mark(phase: str) -> None:
+        record["phase_end_s"][phase] = time.time() - started
+        log(f"[phase {phase} done {record['phase_end_s'][phase]:.0f} s after the start]")
+
     # 1. build ---------------------------------------------------------------
     t0 = time.time()
     reports = _build.build()
@@ -1299,6 +1469,8 @@ def main() -> int:
     card = torch.cuda.get_device_name(0)
     record["card"], record["nvidia_smi"] = card, smi
     log(smi)
+
+    mark("1")
 
     # 2. K2 against its plain version at the B0 448^2 shapes ------------------
     b0 = get_pl_depth_net("ff_effnet", "float32").init_module(
@@ -1326,6 +1498,8 @@ def main() -> int:
             if dname == "bfloat16":
                 max_abs_err = max(max_abs_err, err)
     record["k2_checks"] = checks
+
+    mark("2")
 
     # 3. the serving slice ------------------------------------------------------
     cfg = ExperimentConfig(model_name="ff_effnet", input_size=SIZE)
@@ -1386,6 +1560,8 @@ def main() -> int:
         if grel > tol:
             fail(f"{fn} disagrees with the TF golden: rel {grel:.3e}")
 
+    mark("3")
+
     # 4. times --------------------------------------------------------------------
     record["served_img_per_s"] = served_img_per_s(lambda imgs: serve(state, imgs), decode,
                                                   chunks, smi, "fused")
@@ -1423,8 +1599,12 @@ def main() -> int:
     record["profile"] = profile_idle(lambda: trainer.predict_fused(state, imgs), 3,
                                      times["predict_fused"], smi, "predict_fused")
 
+    mark("4")
+
     # 5. K1 against its plain version ---------------------------------------------
     record["k1_checks"], k1_fwd_err, k1_bwd_err = check_k1()
+
+    mark("5")
 
     # 6. the training slice --------------------------------------------------------
     trainer_t, state_t, cfg_t, rec_t = train_phase(EFFNET_CONFIG, batch=BATCH_TRAIN)
@@ -1433,25 +1613,31 @@ def main() -> int:
         f"{rec_t['train_img_per_s']:.1f} (per epoch {[round(x, 1) for x in rec_t['train_img_per_s_epochs']]}); "
         f"peak device memory {rec_t['peak_mem_gb']:.2f} GB [{smi}]")
 
+    mark("6")
+
     # 7. training times --------------------------------------------------------------
     record["train_times"] = train_times(trainer_t, state_t, cfg_t, smi)
     record["k1_times"] = k1t = k1_times(smi)
     del trainer_t, state_t
     torch.cuda.empty_cache()
 
+    mark("7")
+
     # 8. K4 and int8 serving -----------------------------------------------------------
     trainer_q, state_q, qstate, sites, rec_q = quant_phase(decode, chunks, gtr, gstate, smi)
     record["quant"] = rec_q
 
+    mark("8")
+
     # 9. serving times of the four modes, K4 per site ------------------------------------
     record["quant_times"] = serving_times(trainer_q, state_q, qstate, decode, chunks, smi)
-    record["k4_sites"], k4t = k4_times(sites, smi)
+    record["k4_sites"], k4t = k4_times(sites, smi, "ff_effnet")
     record["k4_totals"] = k4t
     record["k3_bounds"] = k3_bounds()
-    for s in record["k4_sites"]:
-        s.pop("mod", None)
     del trainer_q, state_q, qstate, sites
     torch.cuda.empty_cache()
+
+    mark("9")
 
     # 10. K3 against its plain version and K2, its path, its times ----------------------
     record["k3_checks"], k3_err = check_k3(b0)
@@ -1459,6 +1645,8 @@ def main() -> int:
     record["k3_blocks"], k3t = k3_times(b0, smi)
     record["k3_totals"] = k3t
     torch.cuda.empty_cache()
+
+    mark("10")
 
     # 11. ff_redweb training -------------------------------------------------------------
     trainer_r, state_r, cfg_r, rec_rt = train_phase(REDWEB_CONFIG, n_train=16, n_val=8, epochs=5)
@@ -1474,8 +1662,12 @@ def main() -> int:
     del trainer_r, state_r
     torch.cuda.empty_cache()
 
+    mark("11")
+
     # 12. ff_redweb serving, bn_fold and int8 ----------------------------------------------
     record["redweb_serve"] = rec_rs = redweb_serve_phase(decode, chunks, smi)
+
+    mark("12")
 
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",

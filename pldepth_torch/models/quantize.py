@@ -15,10 +15,12 @@ conv, the top conv and the decoder's ``conv0``-``conv4``. Squeeze-excite,
 the head, the fused tail and every activation stay float. A dense site
 quantizes its input in the compute dtype op by op (``inv = (1/a_scale)``
 rounded to it, then multiply, round half to even, clip), runs the int8
-conv on K4 (ops/quant_conv.py, ops/quant_matmul.py) with an f32 epilogue,
-and dequantizes with ``a_eff = 1 / inv``, the scale the input was really
-divided by. Depthwise sites keep int8 weights with compute-dtype
-activations: a dequantized depthwise conv plus a bias.
+conv on K4 (ops/quant_conv.py, ops/quant_matmul.py: int8 tensor cores, the
+k x k window read in place, an f32 epilogue) from the site's K-major weight
+pack, made once per value of ``kernel_q``, and dequantizes with ``a_eff = 1
+/ inv``, the scale the input was really divided by. Depthwise sites keep
+int8 weights with compute-dtype activations: a dequantized depthwise conv
+plus a bias.
 
 The JAX package's default int8 graph rounds its dequant epilogue in bf16
 (an XLA int8 conv, then bf16 multiply-add); its Pallas kernel ``_kernel``
@@ -41,7 +43,7 @@ from torch import nn
 from pldepth_torch.models.bn_fold import fold_module
 from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass
 from pldepth_torch.ops.conv import conv2d_same_nhwc
-from pldepth_torch.ops.quant_conv import quant_conv2d
+from pldepth_torch.ops.quant_conv import pack_kernel, quant_conv2d
 
 
 def activation_inv(a_scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -80,16 +82,24 @@ class QuantConv(nn.Module):
 
     def derived(self):
         """(dequantized OIHW weight in the compute dtype, inv, a_eff), made
-        once per value of the buffers."""
+        once per value of the buffers, together with :meth:`packed_weight`."""
         key = tuple((t.data_ptr(), t._version) for t in (self.kernel_q, self.w_scale,
                                                           self.a_scale))
         if self._memo is None or self._memo[0] != key:
             with torch.no_grad():
                 w = (self.kernel_q.to(torch.float32) * self.w_scale).to(self.dtype)
                 inv = activation_inv(self.a_scale, self.dtype)
+                dense_int8 = self.groups == 1 and not self.calibrate
                 self._memo = (key, w.permute(3, 2, 0, 1).contiguous(), inv,
-                              1.0 / inv.to(torch.float32))
-        return self._memo[1:]
+                              1.0 / inv.to(torch.float32),
+                              pack_kernel(self.kernel_q) if dense_int8 else None)
+        return self._memo[1:4]
+
+    def packed_weight(self) -> Optional[torch.Tensor]:
+        """``kernel_q`` as K4 reads it (ops/quant_conv.py:pack_kernel) at a
+        dense int8 site, else None; re-made when ``kernel_q`` changes."""
+        self.derived()
+        return self._memo[4]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -105,7 +115,8 @@ class QuantConv(nn.Module):
             return y + self.bias.to(dt)
         return quant_conv2d(quantize_activation(x, inv), self.kernel_q, self.w_scale,
                             self.bias, a_eff, self.stride, out_dtype=dt,
-                            padding=self.padding)
+                            padding=self.padding,
+                            w_packed=self._memo[4])  # derived() above made it current
 
 
 def make_conv(quant, dtype: torch.dtype, in_ch: int, out_ch: int, kernel: int,

@@ -43,7 +43,8 @@ SIGNATURES = {
         "listmle_bwd": (_I, [_P] * 4 + [_I] * 2 + [_P]),
     },
     "quant_matmul": {
-        "quant_matmul": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+        "quant_matmul": (_I, [_P] * 6 + [_I] * 6 + [_P]),
+        "quant_conv2d": (_I, [_P] * 6 + [_I] * 14 + [_P]),
     },
 }
 

@@ -234,12 +234,26 @@ def test_train_step_on_the_card_runs_k1(cuda_device):
     assert (k1.listmle_fwd.launches, k1.listmle_bwd.launches) == (before[0] + 1, before[1] + 1)
 
 
-# K4, the int8 matmul: kernel against its plain version (exact int32 sums in
-# both; f32 out at rtol = atol = 1e-5, tests/test_quantize.py:135's bound,
-# bf16 out within one bf16 ulp), every act, ragged M / N / K, unaligned K.
+# K4, the int8 tensor-core matmul: kernel against its plain version (exact
+# int32 sums in both; f32 out at rtol = atol = 1e-5, tests/test_quantize.py:135's
+# bound, and bit-equal without swish; bf16 out within one bf16 ulp), every
+# act, ragged M / N / K, K of 8- and 1-byte loader widths.
 K4_CASES = [(96, 256, 136, None), (128, 512, 64, "swish"), (997, 27, 5, None),
             (1000, 250, 37, "swish"), (129, 70, 70, "relu"), (65, 4, 33, None),
-            (3, 1, 1, "relu"), (6272, 480, 112, None), (1568, 11520, 672, "relu")]
+            (3, 1, 1, "relu"), (6272, 480, 112, None), (1568, 11520, 672, "relu"),
+            (4100, 24, 144, None), (4100, 40, 240, "relu"), (300, 144, 24, None),
+            (70000, 16, 96, None), (5000, 80, 16, "swish")]
+# the window read in place: (batch, H, W, Cin, Cout, window, stride, padding,
+# act); odd and even sizes at stride 2, Cin 3 / 24 / 40, the 7x7 pad-3 stem,
+# 1x1 stride 2, odd Cout, a window larger than the image's rows
+K4_WINDOWS = [(2, 57, 43, 3, 16, 3, 2, None, "swish"), (2, 56, 44, 3, 32, 3, 2, None, None),
+              (2, 56, 44, 24, 40, 3, 2, None, "relu"), (2, 33, 31, 40, 24, 3, 1, None, None),
+              (2, 33, 31, 64, 48, 1, 2, None, None), (2, 34, 32, 64, 48, 1, 2, None, "relu"),
+              (2, 45, 51, 3, 64, 7, 2, 3, "relu"), (2, 44, 52, 3, 64, 7, 2, 3, None),
+              (3, 15, 17, 128, 37, 7, 2, 3, None), (1, 5, 5, 16, 8, 3, 1, None, None),
+              (4, 28, 28, 288, 144, 3, 1, None, None), (1, 2, 3, 8, 8, 7, 1, None, None),
+              (2, 9, 11, 3, 24, 1, 1, None, None), (2, 19, 18, 5, 40, 3, 2, None, "relu"),
+              (2, 30, 30, 96, 72, 3, 1, None, "swish"), (1, 14, 14, 512, 520, 3, 1, None, None)]
 
 
 def _k4_operands(m, k, n, device, seed=0):
@@ -273,6 +287,49 @@ def test_k4_matches_plain(m, k, n, act, cuda_device):
     acc = k4.quant_matmul(x, w, ones, zeros, 1.0, out_dtype=torch.float32)
     ref = (x.cpu().to(torch.int64) @ w.cpu().to(torch.int64)).to(torch.float32)
     assert torch.equal(acc.cpu(), ref)
+    if act != "swish":
+        assert torch.equal(got, want)
+    # a kept pack gives the same bytes as packing on the fly
+    kept = k4.quant_matmul(*ops, act=act, out_dtype=torch.float32, w_packed=k4.pack_weight(w))
+    assert torch.equal(kept, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K4_WINDOWS)
+def test_k4_window_read_matches_im2col_plus_plain(case, cuda_device):
+    from pldepth_torch.ops import quant_conv as qc
+    from pldepth_torch.ops import quant_matmul as k4
+
+    b, h, w, cin, cout, k, stride, padding, act = case
+    rng = np.random.default_rng(h * w + cin)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)  # noqa: E731
+    q = t(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8))
+    kq = t(rng.integers(-127, 128, (k, k, cin, cout), dtype=np.int8))
+    ws = t((rng.random(cout) * 0.01 + 1e-3).astype(np.float32))
+    bias = t((rng.standard_normal(cout) * 0.1).astype(np.float32))
+    a = 0.05 / (k * k * cin) ** 0.5
+    before = (k4.quant_matmul.launches, qc.quant_conv2d.window_launches, qc.im2col_same.calls)
+    got = qc.quant_conv2d(q, kq, ws, bias, a, stride, torch.float32, padding, act)
+    gotb = qc.quant_conv2d(q, kq, ws, bias, a, stride, torch.bfloat16, padding, act,
+                           w_packed=qc.pack_kernel(kq)).float()
+    torch.cuda.synchronize()
+    assert (k4.quant_matmul.launches, qc.quant_conv2d.window_launches,
+            qc.im2col_same.calls) == (before[0] + 2, before[1] + 2, before[2])
+    want = qc.quant_conv2d_plain(q, kq, ws, bias, a, stride, torch.float32, padding, act)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if act != "swish":
+        assert torch.equal(got, want)
+    wantb = qc.quant_conv2d_plain(q, kq, ws, bias, a, stride, torch.bfloat16, padding,
+                                  act).float()
+    ulp = torch.exp2(torch.floor(torch.log2(wantb.abs().clamp_min(1e-30))) - 7)
+    assert bool(((gotb - wantb).abs() <= ulp).all())
+    # the exact int32 sums against the CPU's int64 product of the patch matrix
+    ones, zeros = torch.ones(cout, device=cuda_device), torch.zeros(cout, device=cuda_device)
+    acc = qc.quant_conv2d(q, kq, ones, zeros, 1.0, stride, torch.float32, padding)
+    ref = qc.im2col_same(q.cpu(), k, stride, padding).to(torch.int64) @ \
+        kq.cpu().reshape(-1, cout).to(torch.int64)
+    assert torch.equal(acc.cpu().reshape(-1, cout), ref.to(torch.float32))
 
 
 @pytest.mark.cuda
@@ -286,8 +343,39 @@ def test_k4_rejects_and_empty(cuda_device):
         k4.quant_matmul(x, w.cpu(), ws, b, a)
     with pytest.raises(TypeError, match="int8"):
         k4.quant_matmul(x.float(), w, ws, b, a)
+    with pytest.raises(ValueError, match="pack_weight"):
+        k4.quant_matmul(x, w, ws, b, a, w_packed=w.t().contiguous())
     empty = k4.quant_matmul(x[:0], w, ws, b, a)
     assert empty.shape == (0, 16)
+
+
+@pytest.mark.cuda
+def test_k4_on_the_card_never_reaches_the_plain_route(cuda_device, monkeypatch):
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.ops import quant_conv as qc
+    from pldepth_torch.ops import quant_matmul as k4
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(ExperimentConfig(model_name="ff_smoke", input_size=64))
+    imgs = np.random.default_rng(1).uniform(size=(2, 64, 64, 3)).astype(np.float32)
+    qstate = trainer.prepare_quant(trainer.init_state(), imgs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the card's route reached the plain version")
+
+    monkeypatch.setattr(qc, "im2col_same", refuse)
+    monkeypatch.setattr(qc, "quant_conv2d_plain", refuse)
+    monkeypatch.setattr(k4, "quant_matmul_plain", refuse)
+    x, w, ws, b, a = _k4_operands(64, 32, 16, cuda_device)
+    k4.quant_matmul(x, w, ws, b, a)
+    q = x.reshape(1, 8, 8, 32)
+    qc.quant_conv2d(q, w.reshape(1, 1, 32, 16), ws, b, a, stride=2)
+    qc.quant_conv2d(q, torch.zeros(3, 3, 32, 16, dtype=torch.int8, device=cuda_device), ws, b, a)
+    assert torch.isfinite(trainer.predict_quant(qstate, imgs).float()).all()
+    # and a pack on another device than the activation raises, it does not fall back
+    with pytest.raises(ValueError, match="is on cpu"):
+        qc.quant_conv2d(q, w.reshape(1, 1, 32, 16), ws, b, a, stride=2,
+                        w_packed=qc.pack_kernel(w.reshape(1, 1, 32, 16).cpu()))
 
 
 @pytest.mark.cuda
@@ -303,9 +391,15 @@ def test_int8_serving_on_the_card_runs_k4_at_every_dense_site(cuda_device):
     imgs = np.random.default_rng(1).uniform(size=(2, 64, 64, 3)).astype(np.float32)
     qstate = trainer.prepare_quant(state, imgs)
     dense = sum(m.groups == 1 for m in quant_sites(qstate.model).values())
-    before = k4.quant_matmul.launches
+    from pldepth_torch.ops import quant_conv as qc
+
+    sites = [m for m in quant_sites(qstate.model).values() if m.groups == 1]
+    windows = sum(m.kernel_q.shape[0] > 1 or m.stride > 1 for m in sites)
+    before = (k4.quant_matmul.launches, qc.quant_conv2d.window_launches, qc.im2col_same.calls)
     q = trainer.predict_quant(qstate, imgs).float()
-    assert k4.quant_matmul.launches - before == dense
+    assert k4.quant_matmul.launches - before[0] == dense
+    assert qc.quant_conv2d.window_launches - before[1] == windows > 0
+    assert qc.im2col_same.calls == before[2]  # no patch matrix on the card
     b = trainer.predict_bnfold(state, imgs).float()
     assert torch.isfinite(q).all()
     rel = float((q - b).abs().max() / b.abs().max())
