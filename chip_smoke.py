@@ -5,6 +5,9 @@
 
 Phases (any failure exits non-zero):
   1. build the CUDA kernels from pldepth_torch/csrc with nvcc (sm_90a);
+     log ptxas's registers, shared memory and spills per kernel and the
+     tensor-core instructions (HMMA / HGMMA) in K2's and K3's SASS
+     (cuobjdump), failing if a bf16 expand or project kernel holds none;
      print the card's name and power limit;
   2. K2 (fused MBConv) against its plain PyTorch version at the 16 shapes
      the ff_effnet (EfficientNet-B0) encoder gives it at 448^2, batch 2,
@@ -15,8 +18,11 @@ Phases (any failure exits non-zero):
      32 finite (448, 448) depth maps, 16 K2 launches per forward,
      predict_fused vs predict, and the f32 model vs the TF golden at 96^2;
   4. times: served images/s through the pipeline; ms per batch of
-     predict_fused and predict (CUDA events); K2 per block shape beside its
-     plain version and its bound; a torch.profiler kernel breakdown of
+     predict_fused and predict (CUDA events); K2 per block shape as device
+     time (profiler windows) beside its plain version, the cuDNN
+     composition of the predict_bnfold graph's block and its bound (bytes,
+     tensor flops at the bf16 peak, CUDA-core flops at the f32 peak; also
+     with g written and read back); a torch.profiler kernel breakdown of
      predict_fused and the device's idle share;
   5. K1 (the sorted ListMLE NLL, forward and backward) against its plain
      PyTorch version in f32 at K in {3, 5, 25, 128, 500} x N in {1, 257,
@@ -60,11 +66,11 @@ Phases (any failure exits non-zero):
      totals per forward (K4 must beat the yardstick's total);
  10. K3 (the banded MBConv) at the four B0 stage-2/3 blocks at 448^2, batch
      8, whole blocks: against its plain version (the band algorithm) and
-     against K2 on the same inputs, bf16 and f32, at the default band and a
-     smaller divisor, one launch per call; the path run (the four blocks,
-     counts from 0); then per block K3's device time per pass beside the
-     plain passes' and the bound, and per call beside K2's (profiler
-     windows that hold every kernel);
+     against K2 on the same inputs (bf16 bit-equal), bf16 and f32, at the
+     default band and a smaller divisor, one launch per call; the path run
+     (the four blocks, counts from 0); then per block K3's device time per
+     pass beside the plain passes' and the bound, and per call beside K2's
+     (profiler windows that hold every kernel);
  11. ff_redweb training: configs/ff_redweb_448.json (448^2, batch 4, K=5,
      RPI=100, thresholded sampling, SGDR, frozen encoder, bf16) through
      Trainer.fit on a seeded synthetic set with phase 6's gates; ms per
@@ -95,6 +101,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -160,6 +167,73 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_name(mangled: str) -> str:
+    """``expand_dw_bf16_kernel<5, 1>`` from its mangled name: the
+    length-prefixed names of ``_ZN...`` read in turn up to the one ending in
+    ``_kernel``, then its template arguments."""
+    pos = 3 if mangled.startswith("_ZN") else 0
+    while pos < len(mangled):
+        m = re.match(r"\d+", mangled[pos:])
+        if not m:
+            break
+        start = pos + m.end()
+        ident = mangled[start:start + int(m.group())]
+        pos = start + len(ident)
+        if ident.endswith("_kernel"):
+            rest = mangled[pos:]
+            k = re.match(r"I((?:Li\d+E)+)", rest)
+            arg = (", ".join(re.findall(r"Li(\d+)E", k.group(1))) if k
+                   else "bf16" if rest.startswith("I13__nv_bfloat16")
+                   else "f32" if rest.startswith("If") else "")
+            return ident + (f"<{arg}>" if arg else "")
+    return mangled[:60]
+
+
+def compiled_code(reports):
+    """Phase 1: what nvcc made of the kernels: ptxas's registers, shared
+    memory and spills per kernel (of the libraries compiled now), and for
+    K2 and K3 the tensor-core instructions (HMMA / HGMMA) in each kernel's
+    SASS, from cuobjdump where the toolkit has it. Fails if a bf16 expand or
+    project kernel of K2 or K3 holds none."""
+    import shutil
+
+    from pldepth_torch.ops import _build
+
+    rec = {"ptxas": {}, "sass": {}}
+    for lib, rep in reports.items():
+        fn = None
+        for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                fn = kernel_name(line.split("'")[1])
+            elif fn and ("registers" in line or "spill" in line):
+                text = line.replace("ptxas info    :", "").strip()
+                rec["ptxas"].setdefault(f"{lib}:{fn}", []).append(text)
+                log(f"ptxas {lib} {fn}: {text}")
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None:
+        log("SASS: cuobjdump not found; tensor-core instructions not checked")
+        return rec
+    for lib in ("fused_mbconv", "banded_mbconv"):
+        out = subprocess.run([tool, "--dump-sass", str(_build.library_path(lib))],
+                             capture_output=True, text=True, timeout=120).stdout
+        fn = None
+        for line in out.splitlines():
+            if "Function :" in line:
+                fn = kernel_name(line.split("Function :")[1].strip())
+                rec["sass"][f"{lib}:{fn}"] = {"HMMA": 0, "HGMMA": 0}
+            elif fn is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if f" {op}." in line or f" {op} " in line:
+                        rec["sass"][f"{lib}:{fn}"][op] += 1
+                        break
+    for key, ops in rec["sass"].items():
+        log(f"SASS {key}: HMMA {ops['HMMA']}, HGMMA {ops['HGMMA']}")
+        if "bf16" in key and ("expand" in key or "project" in key) and not sum(ops.values()):
+            fail(f"{key}: no tensor-core instruction in its SASS")
+    return rec
+
+
 def randomise_bn(module, seed: int) -> None:
     """Seeded BN statistics and affine, so the fold matters."""
     import numpy as np
@@ -179,8 +253,12 @@ def randomise_bn(module, seed: int) -> None:
 
 
 def block_cost(plan, batch: int, dtype: str):
-    """(bytes, flops) the block must move and do: read x, the weights and
-    the affine vectors once, write y once."""
+    """What the block must move and do: (bytes, tensor flops, CUDA-core
+    flops, g bytes). Bytes: read x, the weights and the affine vectors
+    once, write y once. Tensor flops: the expand and the project products.
+    CUDA-core flops: the depthwise, the SE pool and the SE MLP, which have
+    no tensor-core form here. g bytes: the depthwise output once, which a
+    design that writes g and reads it back moves twice more."""
     p = plan.params
     es = 2 if dtype == "bfloat16" else 4
     h, w = plan.in_hw
@@ -191,14 +269,34 @@ def block_cost(plan, batch: int, dtype: str):
     vecs = sum(t.numel() for t in (p.e_scale, p.e_shift, p.d_scale, p.d_shift,
                                    p.se_b1, p.se_b2, p.p_scale, p.p_shift) if t is not None)
     nbytes = es * (batch * h * w * cin + batch * ho * wo * cout + mats) + 4 * vecs
-    flops = 2 * batch * (
-        (h * w * cin * ce if p.we is not None else 0)
-        + ho * wo * ce * plan.kernel ** 2
-        + ho * wo * ce  # SE pool
-        + 2 * ce * cse
-        + ho * wo * ce * cout
-    )
-    return nbytes, flops
+    tensor = 2 * batch * ((h * w * cin * ce if p.we is not None else 0) + ho * wo * ce * cout)
+    cuda = 2 * batch * (ho * wo * ce * plan.kernel ** 2 + ho * wo * ce + 2 * ce * cse)
+    return nbytes, tensor, cuda, es * batch * ho * wo * ce
+
+
+def swish_sfu_ms(plan, batch: int) -> float:
+    """The swishes of the block (the expand's at the input size, the
+    depthwise's at the output size) on the special-function units: an exp2
+    and a reciprocal each, at an eighth of the f32 FMA rate (sm_90 retires
+    16 such results a clock an SM against 128 FMAs). Not a term of the
+    bound, which counts flops; logged beside it."""
+    p = plan.params
+    h, w = plan.in_hw
+    ho, wo = -(-h // plan.stride), -(-w // plan.stride)
+    ce = p.dw.shape[-1]
+    n = batch * ce * ((h * w if p.we is not None else 0) + ho * wo)
+    return 2 * n / (PEAK_FLOPS["float32"] / 2 / 8) * 1e3
+
+
+def mbconv_bound(nbytes: float, tensor: float, cuda: float):
+    """(bound ms, what bounds it, {term: ms}): the larger of the bytes at
+    the memory rate, the tensor flops at the bf16 tensor-core peak and the
+    CUDA-core flops at the f32 peak."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "tensor": tensor / PEAK_FLOPS["bfloat16"] * 1e3,
+             "cuda_core": cuda / PEAK_FLOPS["float32"] * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], ("bytes" if by == "bytes" else "operations"), terms
 
 
 def block_inputs(calls, plans, batch: int, dtype, seed: int):
@@ -225,6 +323,87 @@ def k2_calls(plans):
         calls.append((plan.name, p, dict(kernel=plan.kernel, stride=plan.stride,
                                           residual=plan.residual and plan.tap is None)))
     return calls
+
+
+def composition(blk, tap: bool):
+    """The cuDNN and torch-op composition of the call K2 makes for one
+    block: the predict_bnfold graph's block module (BN folded into biased
+    convs; a tap block from its depthwise on, as K2 runs it)."""
+    from pldepth_torch.models.layers import swish
+
+    if tap:
+        return lambda h: blk.project_conv(blk.se(swish(blk.dw_conv(h))))
+    return lambda x: blk(x)[0]
+
+
+def k2_times(trainer, state, smi: str, reps: int = 10):
+    """Phase 4: per B0 block at 448^2, batch 8, bf16, as device time
+    (profiler kernel durations over windows whose launch counts are
+    checked, device_ms): K2 (its three launches), its plain version and the
+    cuDNN composition of the predict_bnfold graph's block; K2 per call with
+    the host launching back to back (CUDA events); the bound of the work
+    (mbconv_bound: bytes, tensor flops at the bf16 peak, CUDA-core flops at
+    the f32 peak), the bound of K2's design (g written and read back), the
+    bound reckoned with every flop at the tensor peak (the earlier
+    reckoning) and the swishes' time on the special-function units."""
+    import torch
+
+    from pldepth_torch.ops import fused_mbconv as k2
+
+    plans = trainer._plan(state.model, (SIZE, SIZE))
+    calls = k2_calls(plans)
+    xs = block_inputs(calls, plans, BATCH_SERVE, torch.bfloat16, seed=200)
+    folded = trainer._folded_model(state.model).encoder
+    rows = []
+    keys = ("ms", "plain_ms", "composition_ms", "call_ms", "bound_ms", "design_bound_ms",
+            "old_bound_ms", "bytes_ms", "tensor_ms", "cuda_core_ms", "sfu_ms")
+    tot = dict.fromkeys(keys, 0.0)
+    for plan, (name, p, kw), x in zip(plans, calls, xs):
+        fn = lambda: k2.fused_mbconv_infer(x, p, **kw)  # noqa: E731
+        comp = composition(getattr(folded, name), plan.tap is not None)
+        with torch.inference_mode():
+            y = fn().float()
+            rel = float((comp(x).float() - y).abs().max() / y.abs().max())
+            comp_ms = device_ms(lambda: comp(x), reps, f"cuDNN composition {name}")
+        nbytes, tensor, cuda, gbytes = block_cost(plan._replace(params=p), BATCH_SERVE,
+                                                  "bfloat16")
+        bound, by, terms = mbconv_bound(nbytes, tensor, cuda)
+        row = {"block": name, "x": list(x.shape), "kernel": kw["kernel"], "stride": kw["stride"],
+               "ms": device_ms(fn, reps, f"K2 {name}", per_call=3),
+               "plain_ms": device_ms(lambda: k2.mbconv_infer_plain(x, p, **kw), reps,
+                                     f"K2 plain {name}"),
+               "composition_ms": comp_ms, "composition_rel": rel,
+               "call_ms": cuda_ms(fn, reps=reps),
+               "bytes": nbytes, "tensor_flops": tensor, "cuda_flops": cuda, "g_bytes": gbytes,
+               "bound_ms": bound, "bound_by": by, "bytes_ms": terms["bytes"],
+               "tensor_ms": terms["tensor"], "cuda_core_ms": terms["cuda_core"],
+               "design_bound_ms": mbconv_bound(nbytes + 2 * gbytes, tensor, cuda)[0],
+               "old_bound_ms": max(terms["bytes"],
+                                   (tensor + cuda) / PEAK_FLOPS["bfloat16"] * 1e3),
+               "sfu_ms": swish_sfu_ms(plan._replace(params=p), BATCH_SERVE)}
+        rows.append(row)
+        for key in keys:
+            tot[key] += row[key]
+        log(f"K2 {name:14s} x{tuple(x.shape)} k{kw['kernel']} s{kw['stride']}: "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, cuDNN composition "
+            f"{comp_ms:.4f} ms (rel {rel:.2e} from K2), per call with the host "
+            f"{row['call_ms']:.4f} ms; bound {bound:.4f} ms ({by}; bytes {terms['bytes']:.4f}, "
+            f"tensor {terms['tensor']:.4f}, CUDA cores {terms['cuda_core']:.4f}), with the g "
+            f"round trip {row['design_bound_ms']:.4f} ms; swish on the SFU {row['sfu_ms']:.4f} ms "
+            f"[{smi}]")
+    slower = [r["block"] for r in rows if r["ms"] >= r["composition_ms"]]
+    tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= max(tot["tensor_ms"], tot["cuda_core_ms"])
+                       else "operations")
+    tot["slower_than_composition"] = slower
+    log(f"K2 per forward (16 blocks, batch {BATCH_SERVE}, device time): {tot['ms']:.3f} ms, "
+        f"plain {tot['plain_ms']:.3f} ms, cuDNN composition {tot['composition_ms']:.3f} ms; "
+        f"bound {tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f}, tensor "
+        f"{tot['tensor_ms']:.4f}, CUDA cores {tot['cuda_core_ms']:.4f}), with the g round "
+        f"trip {tot['design_bound_ms']:.4f} ms, swish on the SFU {tot['sfu_ms']:.4f} ms, with "
+        f"every flop at the tensor peak {tot['old_bound_ms']:.4f} ms; per call with the host "
+        f"{tot['call_ms']:.3f} ms; "
+        f"blocks where K2 does not beat the composition: {slower or 'none'} [{smi}]")
+    return rows, tot
 
 
 def k1_cost(n: int, k: int):
@@ -547,11 +726,11 @@ def device_ms(fn, reps: int, what: str, per_call=None, n=None) -> float:
     import numpy as np
 
     windows = full_windows(fn, reps, what, per_call, n, fatal=False)
-    if windows is None:
+    ms = None if windows is None else float(np.median([sum(w.values()) for w in windows]))
+    if not ms:  # no full window, or (seen once) full windows that summed to 0
         ms = graph_ms(fn, reps)
         log(f"{what}: timed by CUDA-graph replay instead, {ms:.4f} ms per call")
-        return ms
-    return float(np.median([sum(w.values()) for w in windows]))
+    return ms
 
 
 def profile_idle(fn, n: int, unprofiled_ms: float, smi: str, what: str):
@@ -1047,7 +1226,8 @@ def k3_bounds():
     """K3 (pldepth_tpu/ops/banded_mbconv.py) computes one whole inference
     MBConv, so the bound of the whole call is block_cost's for the blocks it
     was written for: the B0 stage-2 and stage-3 blocks at 448^2, batch 8,
-    bf16 (224^2 and 112^2 inputs). Reckoned from the shapes."""
+    bf16 (224^2 and 112^2 inputs); beside it the bound of K3's design, which
+    writes g and reads it back. Reckoned from the shapes."""
     import torch
 
     from pldepth_torch.models import get_pl_depth_net
@@ -1058,14 +1238,19 @@ def k3_bounds():
     for plan in plan_encoder(b0.encoder, (SIZE, SIZE), torch.bfloat16):
         if not plan.name.startswith(("stage2_", "stage3_")):
             continue
-        nb, fl = block_cost(plan, BATCH_SERVE, "bfloat16")
-        bound, by = bound_ms(nb, fl, PEAK_FLOPS["bfloat16"])
-        rows.append({"block": plan.name, "in_hw": list(plan.in_hw), "bytes": nb, "flops": fl,
-                     "bound_ms": bound, "bound_by": by})
+        nb, tensor, cuda, gb = block_cost(plan, BATCH_SERVE, "bfloat16")
+        bound, by, terms = mbconv_bound(nb, tensor, cuda)
+        design = mbconv_bound(nb + 2 * gb, tensor, cuda)[0]
+        rows.append({"block": plan.name, "in_hw": list(plan.in_hw), "bytes": nb,
+                     "tensor_flops": tensor, "cuda_flops": cuda, "g_bytes": gb,
+                     "bound_ms": bound, "bound_by": by, "terms_ms": terms,
+                     "design_bound_ms": design})
         log(f"K3 bound {plan.name} x(8, {plan.in_hw[0]}, {plan.in_hw[1]}) k{plan.kernel} "
-            f"s{plan.stride}: {bound:.4f} ms ({by}: {nb} B, {fl / 1e9:.3f} GFLOP)")
+            f"s{plan.stride}: {bound:.4f} ms ({by}: {nb} B, {tensor / 1e9:.3f} GFLOP tensor, "
+            f"{cuda / 1e9:.3f} GFLOP CUDA-core); with g written and read back {design:.4f} ms")
     log(f"K3 bound, stage-2 and stage-3 blocks: {sum(r['bound_ms'] for r in rows):.4f} ms "
-        f"per forward of {BATCH_SERVE} at {SIZE}^2")
+        f"(with the g round trip {sum(r['design_bound_ms'] for r in rows):.4f} ms) per forward "
+        f"of {BATCH_SERVE} at {SIZE}^2")
     return rows
 
 
@@ -1119,6 +1304,11 @@ def check_k3(b0):
                 if rel > TOL[dname] or rel_k2 > TOL[dname]:
                     fail(f"K3 {name} {dname} band {b} disagrees: rel {rel:.3e} vs plain, "
                          f"{rel_k2:.3e} vs K2")
+                # bf16: the same expand, depthwise and project code in the same
+                # K and tap orders; the SE partials group otherwise, and the
+                # scale's bf16 rounding absorbs that at these inputs
+                if dname == "bfloat16" and rel_k2 != 0:
+                    fail(f"K3 {name} bf16 band {b} is not bit-equal to K2: rel {rel_k2:.3e}")
                 if dname == "bfloat16":
                     max_err = max(max_err, err)
     return rows, max_err
@@ -1145,10 +1335,11 @@ def k3_path(b0):
 
 
 def k3_cost(plan, p, batch: int, es: int):
-    """(bytes, flops) of each K3 pass: pass 1 reads x and the expand,
-    depthwise and SE weights once and writes g and the f32 scale; pass 2
-    reads g, the scale, the project weights (and x for the residual) and
-    writes y."""
+    """(bytes, tensor flops, CUDA-core flops) of each K3 pass: pass 1 reads
+    x and the expand, depthwise and SE weights once, runs the expand (tensor)
+    and the depthwise and SE (CUDA cores), and writes g and the f32 scale;
+    pass 2 reads g, the scale, the project weights (and x for the residual),
+    forms g * scale (CUDA cores), runs the project (tensor) and writes y."""
     h, w = plan.in_hw
     cin = p.we.shape[0] if p.we is not None else p.dw.shape[-1]
     ce, cse, cout = p.dw.shape[-1], p.se_w1.shape[-1], p.wp.shape[-1]
@@ -1158,12 +1349,12 @@ def k3_cost(plan, p, batch: int, es: int):
     pass1 = (es * (batch * h * w * cin + numel(p.we, p.dw, p.se_w1, p.se_w2) + g_elems)
              + 4 * (numel(p.e_scale, p.e_shift, p.d_scale, p.d_shift, p.se_b1, p.se_b2)
                     + batch * ce),
-             2 * batch * ((h * w * cin * ce if p.we is not None else 0)
-                          + ho * wo * ce * plan.kernel ** 2 + ho * wo * ce + 2 * ce * cse))
+             2 * batch * (h * w * cin * ce if p.we is not None else 0),
+             2 * batch * (ho * wo * ce * plan.kernel ** 2 + ho * wo * ce + 2 * ce * cse))
     y_elems = batch * ho * wo * cout
     pass2 = (es * (g_elems + p.wp.numel() + y_elems * (2 if plan.residual else 1))
              + 4 * (batch * ce + 2 * cout),
-             2 * batch * ho * wo * ce * cout + g_elems)
+             2 * batch * ho * wo * ce * cout, g_elems)
     return {"expand_dw": pass1, "project": pass2}
 
 
@@ -1205,18 +1396,18 @@ def k3_times(b0, smi: str, reps: int = 10):
                                                        stride=kw["stride"], band=band),
             "project": lambda: k3.banded_pass2_plain(g, scale, x, p,
                                                      residual=kw["residual"])}
-        for part, (nb, fl) in k3_cost(plan, p, BATCH_SERVE, 2).items():
+        for part, (nb, tensor, cuda) in k3_cost(plan, p, BATCH_SERVE, 2).items():
             names = ("band_project",) if part == "project" else ("band_expand_dw", "band_se")
-            bytes_ms = nb / HBM_BYTES_PER_S * 1e3
-            ops_ms = fl / PEAK_FLOPS["bfloat16"] * 1e3
+            bound, _, terms = mbconv_bound(nb, tensor, cuda)
             row[part] = {"ms": float(np.median([sum(ms for n, ms in w.items()
                                                     if any(k in n for k in names))
                                                 for w in windows])),
                          "plain_ms": device_ms(plains[part], reps, f"K3 plain {part} {name}",
                                                n=3),
-                         "bytes": nb, "flops": fl,
-                         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-                         "bound_ms": max(bytes_ms, ops_ms)}
+                         "bytes": nb, "tensor_flops": tensor, "cuda_flops": cuda,
+                         "bytes_ms": terms["bytes"],
+                         "ops_ms": max(terms["tensor"], terms["cuda_core"]),
+                         "bound_ms": bound}
             for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
                 tot[f"{part}_{key}"] += row[part][key]
         for key in ("call_ms", "k2_ms", "k2_call_ms"):
@@ -1456,10 +1647,7 @@ def main() -> int:
     t0 = time.time()
     reports = _build.build()
     record["build_s"] = time.time() - t0
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+    record["compiled"] = compiled_code(reports)
     log(f"built {sorted(_build.SIGNATURES)} in {record['build_s']:.1f} s "
         f"(compiled now: {sorted(reports)})")
     smi = subprocess.run(
@@ -1570,31 +1758,8 @@ def main() -> int:
         smi, f"batch of {BATCH_SERVE} at {SIZE}^2 bf16")
     record["batch_ms"], record["batch_ms_samples"] = times, samples
 
-    plans = trainer._plan(state.model, (SIZE, SIZE))
-    calls = k2_calls(plans)
-    xs = block_inputs(calls, plans, BATCH_SERVE, torch.bfloat16, seed=200)
-    per_block, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                          "bound_ms": 0.0}
-    for plan, (name, p, kw), x in zip(plans, calls, xs):
-        ms = cuda_ms(lambda: k2.fused_mbconv_infer(x, p, **kw))
-        pms = cuda_ms(lambda: k2.mbconv_infer_plain(x, p, **kw))
-        kplan = plan._replace(params=p)
-        nbytes, flops = block_cost(kplan, BATCH_SERVE, "bfloat16")
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
-        row = {"block": name, "x": list(x.shape), "kernel": kw["kernel"], "stride": kw["stride"],
-               "ms": ms, "plain_ms": pms, "bytes": nbytes, "flops": flops,
-               "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms)}
-        per_block.append(row)
-        for k in tot:
-            tot[k] += row[k]
-        log(f"K2 {name:14s} x{tuple(x.shape)} k{kw['kernel']} s{kw['stride']}: "
-            f"{ms:.4f} ms, plain {pms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"({'bytes' if bytes_ms >= ops_ms else 'operations'}) [{smi}]")
-    record["k2_blocks_bf16_batch8"] = per_block
+    record["k2_blocks_bf16_batch8"], tot = k2_times(trainer, state, smi)
     record["k2_totals"] = tot
-    log(f"K2 per forward (16 blocks, batch {BATCH_SERVE}): {tot['ms']:.3f} ms, "
-        f"plain {tot['plain_ms']:.3f} ms, bound {tot['bound_ms']:.4f} ms [{smi}]")
 
     record["profile"] = profile_idle(lambda: trainer.predict_fused(state, imgs), 3,
                                      times["predict_fused"], smi, "predict_fused")
@@ -1674,8 +1839,7 @@ def main() -> int:
         "source": "pldepth_torch/csrc/fused_mbconv.cu",
         "replaces": "pldepth_tpu/ops/fused_mbconv.py:104",
         "launches": launches, "max_abs_err": max_abs_err,
-        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
+        **{key: tot[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
     }] + [{
         "name": f"banded_{part}", "route": "cuda", "source": "pldepth_torch/csrc/banded_mbconv.cu",

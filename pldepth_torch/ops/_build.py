@@ -31,12 +31,10 @@ _I = ctypes.c_int
 # C signature of each kernel library: {symbol: (restype, argtypes)}
 SIGNATURES = {
     "fused_mbconv": {
-        "fused_mbconv_tiles": (_I, [_I, _I, _I]),
-        "fused_mbconv_infer": (_I, [_I] + [_P] * 18 + [_I] * 15 + [_P]),
+        "fused_mbconv_infer": (_I, [_I] + [_P] * 18 + [_I] * 22 + [_P]),
     },
     "banded_mbconv": {
-        "banded_mbconv_strips": (_I, [_I, _I]),
-        "banded_mbconv_infer": (_I, [_I] + [_P] * 18 + [_I] * 12 + [_P]),
+        "banded_mbconv_infer": (_I, [_I] + [_P] * 18 + [_I] * 16 + [_P]),
     },
     "listmle": {
         "listmle_fwd": (_I, [_P] * 3 + [_I] * 2 + [_P]),

@@ -25,33 +25,39 @@ The function and its rounding points are the TPU kernel's:
 ``Ho = H // stride``: H and W must be even at stride 2 (K2 takes ``ceil``;
 this function raises instead of returning another shape).
 
-What bounds it on the H100: bytes, as K2 (ops/fused_mbconv.py): a few
-hundred to a few thousand flops per output pixel on a few hundred bytes.
+What bounds it on the H100: what bounds K2 (ops/fused_mbconv.py): the
+expand and project products at the bf16 tensor-core rate, the depthwise at
+the f32 CUDA-core rate, and the bytes of x, y and the ``g`` round trip.
 
 The Hopper design (``pldepth_torch/csrc/banded_mbconv.cu``), three launches:
 
-(a) expand + depthwise: one block per (band, column strip, 32-channel slice,
-    image); 256 threads, each warp's lanes one channel each. A full-width
-    band of the expanded tensor does not fit in 227 KB of shared memory
-    (stage2_block0: 34 x 224 x 96 bf16 = 1.46 MB), so a block holds a tile
-    of it: a strip of 16 output columns at stride 1, 8 at stride 2, one
-    32-channel slice (the expand is separable by output channel, so a
-    slice recomputes only its own channels on its column halo), walked down
-    the band in chunks of 8 output rows. The input window of a chunk is
-    ``(8 - 1) * stride + k`` rows by ``(strip - 1) * stride + k`` columns of
-    f32 (at most 19 x 19 x 32 x 4 B = 46 KB, at k = 5, stride 2); the
-    ``k - stride`` rows two chunks share are kept, so each expanded row of a
-    band and strip is computed once. The block writes ``g`` and one f32 SE
-    partial per (image, band, strip).
-(b) SE: one block per image sums the partials over strips, then over bands,
-    in that fixed order (no float atomics: the result is deterministic, as
+(a) expand + depthwise: one block per (band, column strip, channel group,
+    image); 256 threads. A full-width band of the expanded tensor does not
+    fit in 227 KB of shared memory (stage2_block0: 34 x 224 x 96 bf16 =
+    1.46 MB), so a block holds a tile of it: a strip of 16 output columns
+    at stride 1, 8 at stride 2, walked down the band in chunks of 8 output
+    rows. The input window of a chunk is ``(8 - 1) * stride + k`` rows by
+    ``(strip - 1) * stride + k`` columns; the ``k - stride`` rows two chunks
+    share are kept, so each expanded row of a band and strip is computed
+    once. bf16: a 64-channel group; the chunk's new x rows are copied into
+    shared memory with 16-byte ``cp.async`` requests, the expand runs on
+    the tensor cores and the depthwise on the CUDA cores through K2's own
+    device functions, in K2's K and tap orders, so ``g`` equals K2's bit for
+    bit; h is bf16 in shared memory. f32: a 32-channel slice on CUDA-core
+    FMA, h in f32. The block writes ``g`` and one f32 SE partial per
+    (image, band, strip). :func:`plan_k3` gives the strip and the shared
+    memory.
+(b) SE: one block per image sums the (band, strip) partials in a fixed
+    order, K2's code (no float atomics: the result is deterministic, as
     K2's is), then runs the MLP.
-(c) project: per band, 64-pixel x 64-channel tiles of ``(g * scale) @ wp``
-    (the tile code is K2's, csrc/mbconv_common.cuh), BN affine, residual.
+(c) project: per band, tiles of ``(g * scale) @ wp``, BN affine, residual:
+    bf16 on K2's tensor-core tile (csrc/mbconv_common.cuh), f32 on the f32
+    tile.
 
 The band stays the unit of ``g``'s writes and of the SE partials, so
-``band_rows`` means what it means in JAX. Plain f32 FMA loops throughout;
-tensor cores and TMA are later work (PERF.md).
+``band_rows`` means what it means in JAX. The SE sums K2's partials in
+another grouping, so the scale, and through it y, can differ from K2's by
+one bf16 rounding.
 
 :func:`banded_mbconv_plain` is the pure-torch twin of the band algorithm
 (per band: slice the haloed rows, expand, mask the halo, depthwise,
@@ -64,17 +70,60 @@ are the plain versions of the two TPU kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from pldepth_torch.ops.fused_mbconv import (
     _DTYPE_CODE,
+    CG,
+    F32_SLICE,
+    N_SMS,
+    SMEM_PER_BLOCK,
+    STATIC_SMEM,
     MBConvParams,
+    _bf16_smem,
     _check,
     _swish,
     cast_params,
 )
+
+
+RC = 8  # output rows per chunk of a band (csrc/banded_mbconv.cu)
+
+
+class K3Plan(NamedTuple):
+    """How K3 cuts one block shape (:func:`plan_k3`)."""
+
+    strip: int  # output columns of a block
+    n_strips: int
+    kp: int  # bf16: Cin zero-padded to a multiple of 16; 0 for the tap form
+    smem: int  # dynamic shared memory of the expand + depthwise block, bytes
+    proj_mt: int  # bf16 project tile: 64 * proj_mt pixels
+
+
+@functools.lru_cache(maxsize=None)
+def plan_k3(w: int, cin: int, cout: int, *, kernel: int, stride: int, band: int,
+            n_bands: int, batch: int, has_expand: bool, dtype: torch.dtype) -> K3Plan:
+    """K3's cut of one block shape: 16-column strips at stride 1, 8 at
+    stride 2, an 8-row chunk's window of h in shared memory (bf16 with the
+    chunk's x rows and one weight group beside it; f32 a 32-channel
+    slice); the bf16 project takes 128-pixel tiles where they give every
+    SM one. Raises ValueError where the window does not fit one block."""
+    wo = w // stride
+    strip = 16 if stride == 1 else 8
+    win = ((RC - 1) * stride + kernel) * ((strip - 1) * stride + kernel)
+    if dtype == torch.float32:
+        return K3Plan(strip, -(-wo // strip), 0, win * F32_SLICE * 4, 1)
+    kp = -(-cin // 16) * 16 if has_expand else 0
+    smem = _bf16_smem((1, win), kp)
+    if smem + STATIC_SMEM > SMEM_PER_BLOCK:
+        raise ValueError(f"banded_mbconv_infer: a chunk's window needs {smem} bytes of "
+                         f"shared memory at Cin {cin}, more than a block has")
+    tiles = n_bands * -(-(band * wo) // 128) * -(-cout // CG) * batch
+    return K3Plan(strip, -(-wo // strip), kp, smem, 2 if tiles >= N_SMS else 1)
 
 
 def pick_band(ho: int) -> int:
@@ -190,15 +239,19 @@ def banded_mbconv_infer(x: torch.Tensor, params: MBConvParams, *, kernel: int,
         if v is not None and v.device != x.device:
             raise ValueError(f"MBConvParams.{name} is on {v.device}, x on {x.device}")
     ce, cse, cout = p.dw.shape[-1], p.se_w1.shape[-1], p.wp.shape[-1]
+    if dt == torch.bfloat16 and (cin % 8 or ce % 8 or cout % 8):
+        raise ValueError(f"banded_mbconv_infer: bf16 channels must be multiples of 8, "
+                         f"got Cin {cin}, Ce {ce}, Cout {cout}")
+    plan = plan_k3(ww, cin, cout, kernel=kernel, stride=stride, band=band, n_bands=ho // band,
+                   batch=b, has_expand=p.we is not None, dtype=dt)
 
     from pldepth_torch.ops._build import load_library
 
     lib = load_library("banded_mbconv")
-    n_strips = lib.banded_mbconv_strips(wo, stride)
     dev = x.device
     y = torch.empty((b, ho, wo, cout), dtype=dt, device=dev)
     g = torch.empty((b, ho, wo, ce), dtype=dt, device=dev)
-    partial = torch.empty((b, ho // band, n_strips, ce), dtype=torch.float32, device=dev)
+    partial = torch.empty((b, ho // band, plan.n_strips, ce), dtype=torch.float32, device=dev)
     scale = torch.empty((b, ce), dtype=torch.float32, device=dev)
     ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -210,7 +263,8 @@ def banded_mbconv_infer(x: torch.Tensor, params: MBConvParams, *, kernel: int,
         ptr(p.wp), ptr(p.p_scale), ptr(p.p_shift),
         ptr(g), ptr(partial), ptr(scale), ptr(y),
         b, hh, ww, cin, ce, cse, cout, kernel, stride, band,
-        int(p.we is not None), int(residual), ctypes.c_void_p(stream),
+        int(p.we is not None), int(residual), plan.strip, plan.kp, plan.smem, plan.proj_mt,
+        ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"banded_mbconv kernel launch failed: CUDA error {err}")

@@ -6,42 +6,51 @@ image with the expanded (H, W, Ce) tensor held in VMEM: 1x1 expand + folded
 BN + swish, k x k depthwise (TF SAME) + BN + swish, stride-2 subsample,
 squeeze-excite, 1x1 project + BN, residual.
 
-What bounds it on the H100: bytes. Per output pixel the block does a few
-hundred to a few thousand flops on a few hundred bytes, far below the
-~295 flop/byte at which bf16 tensor cores become the limit. The least
-traffic is "read x, write y, read the weights once". The TPU kept the
+What bounds it on the H100. Per ff_effnet forward (448^2, batch 8) the
+expand and project products are ~20 GFLOP, ~21 us at the bf16 tensor-core
+peak; the depthwise (~2.2 GFLOP, which has no tensor-core form) ~33 us at
+the f32 CUDA-core peak; x in and y out ~30 us of bytes. The TPU kept the
 expanded tensor on chip for the whole image; a Hopper block has at most
 227 KB of shared memory, and ``stage2_block0`` at 448^2 expands to 9.6 MB
 per image, so that schedule cannot carry over.
 
 The design (``pldepth_torch/csrc/fused_mbconv.cu``), three launches per call:
 
-(a) expand + depthwise: one block per (image, output tile, 32-channel slice).
-    The expand is separable by output channel, so each slice recomputes only
-    its own channels of the 1x1 expand on the tile's depthwise halo, in
-    shared memory; the expanded tensor never reaches device memory. It
-    writes ``g`` (the depthwise output, stored dtype) and a per-tile f32
-    partial sum for the SE pool.
+(a) expand + depthwise: one block per (image, output tile, wide group of
+    64-channel groups). bf16: the block copies the tile's haloed x window
+    into shared memory once (16-byte ``cp.async``), then for each group of
+    its wide group runs the expand on the tensor cores (``mma.sync``
+    m16n8k16 bf16 -> f32 from ``ldmatrix``), affine + swish in f32, ``h``
+    rounded to bf16 in shared memory, and the depthwise on the CUDA cores;
+    the expanded tensor never reaches device memory. It writes ``g`` (the
+    depthwise output) and a per-(tile, channel) f32 partial sum for the SE
+    pool. :func:`plan_k2` picks the tile and the wide group per block
+    shape.
 (b) SE: one block per image reduces the partials in a fixed order (no float
     atomics, so results are deterministic) and runs the SE MLP in f32.
-(c) project: a tiled (g * scale) @ wp product with f32 accumulation, BN
-    affine and the residual.
+(c) project: tiles of (g * scale) @ wp on the tensor cores from a
+    ``cp.async`` ring, f32 accumulation, BN affine, the residual.
 
 So the kernel moves x + y + 2 * g + weights, where the TPU kernel moved
-x + y + weights: ``g`` is the one round trip this design pays for the
-parallel grid. Plain f32 FMA loops throughout; tensor cores (mma/wgmma) and
-TMA are later work (PERF.md).
+x + y + weights: ``g`` is the round trip this design pays for the parallel
+grid. The f32 instantiation keeps CUDA-core f32 FMA throughout (32-channel
+slices, the f32 project tile): TF32 tensor cores would put it ~1e-3 from
+its plain version, outside the f32 gates.
 
 Rounding points follow ``_mbconv_kernel`` (fused_mbconv.py:112-164): expand
-affine and swish in f32 then cast; depthwise accumulated in f32, BN and
-swish in f32, cast; SE pool and MLP in f32 with the scale cast to the
-storage dtype; project in f32, affine, cast, residual added in the storage
+accumulated in f32, affine and swish in f32, then cast; depthwise
+accumulated in f32, BN and swish in f32, cast; SE pool and MLP in f32 with
+the scale cast to the storage dtype; project on g * scale in the storage
+dtype, accumulated in f32, affine, cast, residual added in the storage
 dtype. :func:`mbconv_infer_plain` is the same function in plain PyTorch.
+The bf16 kernel takes channel counts that are multiples of 8 (whole 16-byte
+rows; every EfficientNet width is one) and raises on others.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -50,6 +59,112 @@ import torch.nn.functional as F
 from pldepth_torch.ops.conv import same_out_and_pad, same_pads
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# The H100's limits the plan works within (NVIDIA's data sheet)
+SMEM_PER_BLOCK = 232_448  # bytes of shared memory one block may use
+SMEM_PER_SM = 233_472  # shared memory of one SM
+N_SMS = 132
+CG = 64  # expanded channels of one bf16 group (csrc/mbconv_common.cuh)
+HS = CG + 8  # row stride of h and of a weight group, elements
+DW_PAD = 8  # pixels of h past the window that a depthwise run may read
+F32_SLICE = 32  # channels of one f32 block
+STATIC_SMEM = 4 * (2 * CG + 8 * CG)  # the bf16 block's static es, et, red
+# rough per-SM rates of the cost model that ranks the candidate plans
+_TENSOR_PER_SM = 989e12 / N_SMS / 2  # mma.sync at half the bf16 peak
+_CUDA_PER_SM = 67e12 / N_SMS / 3  # depthwise: bf16 unpack and loads beside each FMA
+_BYTES_PER_SM = 3.35e12 / N_SMS
+_BLOCK_FIXED_S = 3e-6  # a block's fill and drain
+# (rows, columns) of the output tiles plan_k2 weighs, in order of preference;
+# the half tiles hold two blocks an SM where a 16 x 16 window holds one
+K2_TILES = ((16, 16), (8, 16), (16, 8), (12, 12), (8, 8), (4, 16), (4, 8), (4, 4))
+
+
+class K2Plan(NamedTuple):
+    """How K2 cuts one block shape (:func:`plan_k2`)."""
+
+    th: int  # output tile rows
+    tw: int  # output tile columns
+    tiles_h: int
+    tiles_w: int
+    kp: int  # Cin zero-padded to a multiple of 16; 0 for the tap form (no expand)
+    groups: int  # channel groups of Ce: 64 channels (bf16), 32 (f32)
+    gpb: int  # groups of one block (its wide group)
+    wide: int  # blocks along the channels: ceil(groups / gpb)
+    smem: int  # dynamic shared memory of the expand + depthwise block, bytes
+    proj_mt: int  # bf16 project tile: 64 * proj_mt pixels
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tiles_h * self.tiles_w
+
+
+def _window(th: int, tw: int, kernel: int, stride: int) -> Tuple[int, int]:
+    return (th - 1) * stride + kernel, (tw - 1) * stride + kernel
+
+
+def _bf16_smem(win: Tuple[int, int], kp: int) -> int:
+    npix = win[0] * win[1]
+    return 2 * ((npix + DW_PAD) * HS + (npix * (kp + 8) + kp * HS if kp else 0))
+
+
+def _bf16_seconds(ho, wo, th, tw, kp, cin, groups, gpb, kernel, stride, batch, smem):
+    """Rough device time of the expand + depthwise launch under a plan:
+    per group the expand on the tensor cores, the depthwise on the CUDA
+    cores and g's bytes; per block the window's bytes and a fixed cost; the
+    blocks in waves over the SMs (two resident blocks overlap their
+    phases)."""
+    win = _window(th, tw, kernel, stride)
+    npix = win[0] * win[1]
+    per_group = (2 * -(-npix // 16) * 16 * kp * CG / _TENSOR_PER_SM
+                 + 2 * th * tw * CG * kernel ** 2 / _CUDA_PER_SM
+                 + 2 * (th * tw * CG + (kp * CG if kp else npix * CG)) / _BYTES_PER_SM)
+    per_block = gpb * per_group + 2 * npix * cin / _BYTES_PER_SM * bool(kp) + _BLOCK_FIXED_S
+    blocks = -(-ho // th) * -(-wo // tw) * -(-groups // gpb) * batch
+    resident = 2 if SMEM_PER_SM // (smem + STATIC_SMEM + 1024) >= 2 else 1
+    return -(-blocks // (N_SMS * resident)) * per_block * (1.5 if resident == 2 else 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_k2(h: int, w: int, cin: int, ce: int, cout: int, *, kernel: int, stride: int,
+            batch: int, has_expand: bool, dtype: torch.dtype) -> K2Plan:
+    """K2's cut of one block shape: the output tile, the channel groups of
+    a block and its shared memory; the launcher takes every number from
+    here (memoised: a pure function of its arguments). bf16: of the tiles
+    in :data:`K2_TILES` (each side capped by the output) and every wide
+    group whose window, h and weight group fit one block's shared memory,
+    the one the cost model (:func:`_bf16_seconds`) ranks fastest, ties to
+    the earlier tile and then the wider group; the project takes 128-pixel
+    tiles where they give every SM one. f32: 16-pixel square tiles at
+    stride 1, 8 at stride 2, 32-channel slices."""
+    ho, wo = -(-h // stride), -(-w // stride)
+    if dtype == torch.float32:
+        t = 16 if stride == 1 else 8
+        win = _window(t, t, kernel, stride)
+        groups = -(-ce // F32_SLICE)
+        return K2Plan(t, t, -(-ho // t), -(-wo // t), 0, groups, 1, groups,
+                      win[0] * win[1] * F32_SLICE * 4, 1)
+    kp = -(-cin // 16) * 16 if has_expand else 0
+    groups = -(-ce // CG)
+    best = None
+    for th, tw in K2_TILES:
+        th, tw = min(th, ho), min(tw, wo)
+        smem = _bf16_smem(_window(th, tw, kernel, stride), kp)
+        if smem + STATIC_SMEM > SMEM_PER_BLOCK:
+            continue
+        for gpb in range(groups, 0, -1):
+            if gpb < groups and -(-groups // gpb) == -(-groups // (gpb + 1)):
+                continue  # the same number of blocks as a wider group
+            secs = _bf16_seconds(ho, wo, th, tw, kp, cin, groups, gpb, kernel, stride, batch,
+                                 smem)
+            if best is None or secs < best[0] * (1 - 1e-9):
+                best = (secs, K2Plan(th, tw, -(-ho // th), -(-wo // tw), kp, groups, gpb,
+                                     -(-groups // gpb), smem, 1))
+    if best is None:
+        raise ValueError(f"no K2 tile fits {SMEM_PER_BLOCK} bytes of shared memory "
+                         f"(Cin {cin}, kernel {kernel}, stride {stride})")
+    plan = best[1]
+    proj_tiles = -(-(ho * wo) // 128) * -(-cout // CG) * batch
+    return plan._replace(proj_mt=2 if proj_tiles >= N_SMS else 1)
 
 
 class MBConvParams(NamedTuple):
@@ -179,18 +294,22 @@ def fused_mbconv_infer(x: torch.Tensor, params: MBConvParams, *, kernel: int,
         if v is not None and v.device != x.device:
             raise ValueError(f"MBConvParams.{name} is on {v.device}, x on {x.device}")
     ce, cse, cout = p.dw.shape[-1], p.se_w1.shape[-1], p.wp.shape[-1]
+    if dt == torch.bfloat16 and (cin % 8 or ce % 8 or cout % 8):
+        raise ValueError(f"fused_mbconv_infer: bf16 channels must be multiples of 8, "
+                         f"got Cin {cin}, Ce {ce}, Cout {cout}")
     ho, pad_t = same_out_and_pad(hh, kernel, stride)
     wo, pad_l = same_out_and_pad(ww, kernel, stride)
+    plan = plan_k2(hh, ww, cin, ce, cout, kernel=kernel, stride=stride, batch=b,
+                   has_expand=p.we is not None, dtype=dt)
 
     from pldepth_torch.ops._build import load_library
 
     lib = load_library("fused_mbconv")
-    n_tiles = lib.fused_mbconv_tiles(ho, wo, stride)
     y = torch.empty((b, ho, wo, cout), dtype=dt, device=x.device)
     g = torch.empty((b, ho, wo, ce), dtype=dt, device=x.device)
-    partial = torch.empty((b, n_tiles, ce), dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, plan.n_tiles, ce), dtype=torch.float32, device=x.device)
     scale = torch.empty((b, ce), dtype=dt, device=x.device)
-    ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())
+    ptr = lambda t: ctypes.c_void_p(0 if t is None else t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_mbconv_infer(
         _DTYPE_CODE[dt],
@@ -201,6 +320,7 @@ def fused_mbconv_infer(x: torch.Tensor, params: MBConvParams, *, kernel: int,
         ptr(g), ptr(partial), ptr(scale), ptr(y),
         b, hh, ww, cin, ce, cse, cout, ho, wo, pad_t, pad_l,
         kernel, stride, int(p.we is not None), int(residual),
+        plan.th, plan.tw, plan.kp, plan.gpb, plan.wide, plan.smem, plan.proj_mt,
         ctypes.c_void_p(stream),
     )
     if err != 0:

@@ -196,7 +196,9 @@ def rank_candidates(gidx: torch.Tensor, gts: torch.Tensor, *, sampler_name: str,
     if spec.scored:
         scores = _score_lists(sampler_name, depths, gflat.amin(-1)[:, None, None],
                               gflat.amax(-1)[:, None, None], threshold)
-        top = torch.topk(scores, rpi, dim=-1).indices[..., None]
+        # the first RPI of a stable descending order: ties go to the lower
+        # index, as jax.lax.top_k puts them (torch.topk leaves them unordered)
+        top = torch.argsort(-scores, dim=-1, stable=True)[..., :rpi, None]
         depths = torch.take_along_dim(depths, top, dim=1)
         flat = torch.take_along_dim(flat, top, dim=1)
     else:

@@ -38,8 +38,11 @@ class CheckpointManager:
         self._best_path = os.path.join(self.directory, "best_val.json")
         self.best_val = float("inf")
         if os.path.exists(self._best_path):
-            with open(self._best_path) as f:
-                self.best_val = float(json.load(f)["best_val"])
+            try:
+                with open(self._best_path) as f:
+                    self.best_val = float(json.load(f)["best_val"])
+            except Exception:  # a marker cut mid-write: tracking starts afresh
+                log.warning("unreadable %s; best-val tracking resets", self._best_path)
 
     def steps(self) -> List[int]:
         return sorted(int(m.group(1)) for m in map(_CKPT.match, os.listdir(self.directory)) if m)
@@ -108,12 +111,13 @@ def load_weights_npz(path: str, state):
 
 def infer_decoder_head_ch(path: str, default: int = 32) -> int:
     """The decoder width a weights npz was trained with (conv4's out
-    channels); ``default`` if the archive has no ``decoder/conv4``."""
+    channels); ``default`` if the archive has no ``decoder/conv4`` or cannot
+    be read (a truncated npz raises zipfile.BadZipFile)."""
     try:
         with np.load(path) as archive:
             key = "params/decoder/conv4/kernel"
             if key in archive:
                 return int(archive[key].shape[-1])
-    except (OSError, ValueError):
+    except Exception:
         pass
     return default

@@ -284,15 +284,16 @@ class Trainer:
     def predict_fused(self, state: TrainState, images) -> torch.Tensor:
         """predict() with the encoder on the fused MBConv kernel (every block
         launches K2, ops/fused_mbconv.py). ff_effnet family only; matches
-        predict() to compute-dtype rounding. The plan (folded, cast block
-        weights) is made once per (model, input size); a state whose weights
-        change gets a new model (train/checkpoint.py), hence a new plan."""
+        predict() to compute-dtype rounding; another model has no MBConv
+        block and is served by predict(), as in the JAX package. The plan
+        (folded, cast block weights) is made once per (model, input size); a
+        state whose weights change gets a new model (train/checkpoint.py),
+        hence a new plan."""
         from pldepth_torch.models.fused_infer import encoder_infer
 
         module = state.model
         if not isinstance(module, EffNetFullyFledged):
-            raise NotImplementedError(
-                f"predict_fused serves the ff_effnet family, not {type(module).__name__}")
+            return self.predict(state, images)
         x = self._images(images)
         plans = self._plan(module, tuple(x.shape[1:3]))
         top, taps = encoder_infer(module.encoder, x, plans, dtype=module.dtype)

@@ -117,3 +117,34 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     got = tk.banded_mbconv_infer(torch.from_numpy(x), tp, **kw)
     assert torch.equal(got, tk.banded_mbconv_plain(torch.from_numpy(x), tp, **kw))
     assert tk.banded_mbconv_infer.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block", ["stage2_block0", "stage2_block1", "stage3_block0",
+                                   "stage3_block1"])
+def test_plan_k3_fits_and_covers_the_b0_blocks(block, dtype):
+    """plan_k3 at the four B0 blocks K3 serves (448^2, batch 8) and every
+    divisor band: the strips cover the output width, the chunk's window
+    (h, and for bf16 the chunk's x rows and a weight group) fits one
+    block's shared memory."""
+    from pldepth_torch.models.efficientnet import EfficientNetEncoder
+    from pldepth_torch.models.fused_infer import plan_encoder
+
+    with torch.device("meta"):
+        enc = EfficientNetEncoder("b0", torch.bfloat16)
+    plan = next(p for p in plan_encoder(enc, (448, 448), torch.bfloat16) if p.name == block)
+    h, w = plan.in_hw
+    cin, cout = plan.params.we.shape[0], plan.params.wp.shape[-1]
+    ho, k, s = h // plan.stride, plan.kernel, plan.stride
+    for band in [b for b in range(1, ho + 1) if ho % b == 0]:
+        kp3 = tk.plan_k3(w, cin, cout, kernel=k, stride=s, band=band, n_bands=ho // band,
+                         batch=8, has_expand=True, dtype=dtype)
+        wo = w // s
+        assert kp3.n_strips * kp3.strip >= wo > (kp3.n_strips - 1) * kp3.strip
+        win = (7 * s + k) * ((kp3.strip - 1) * s + k)
+        if dtype == torch.bfloat16:
+            assert kp3.kp == -(-cin // 16) * 16
+            assert kp3.smem == 2 * ((win + 8) * 72 + win * (kp3.kp + 8) + kp3.kp * 72)
+        else:
+            assert kp3.smem == win * 32 * 4
+        assert kp3.smem + 4096 <= 232_448

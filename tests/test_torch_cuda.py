@@ -27,10 +27,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(case, hw, batch, cin, seed=0):
+def _case(case, hw, batch, cin, seed=0, cout=None):
     k, stride, expand, residual = case
     ce = cin * (6 if expand else 1)
-    cout, cse = cin, max(1, cin // 4)
+    cout, cse = cout or cin, max(1, cin // 4)
     rng = np.random.default_rng(seed)
     f = lambda shape, s=0.2: torch.from_numpy((rng.normal(size=shape) * s).astype(np.float32))
     p = k2.MBConvParams(
@@ -64,6 +64,31 @@ def test_kernel_matches_plain(case, dtype, hw, cin, cuda_device):
     assert rel <= tol, rel
 
 
+# K2 at ragged shapes: the expand's K tail (Cin 24 / 40 / 112, no multiple
+# of 16), Ce no multiple of the 64-channel group (144, 240, 672), odd sizes at
+# stride 2, whole-image tiles, the tap form, and a B0 stage-1 block at 224^2
+# (the 128-pixel project tile); bf16 within 1e-2, f32 within 1e-4
+K2_RAGGED = [((3, 2, True, False), (33, 31), 24, None), ((5, 2, True, False), (29, 35), 40, None),
+             ((5, 1, True, True), (14, 14), 112, None), ((3, 1, True, True), (28, 28), 112, None),
+             ((5, 2, False, False), (15, 17), 40, None), ((3, 1, False, False), (224, 224), 32, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,hw,cin,cout", K2_RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_at_ragged_shapes(case, hw, cin, cout, dtype, cuda_device):
+    x, p, kw = _case(case, hw, 2, cin, seed=4, cout=cout)
+    xd = x.to(cuda_device, dtype)
+    pd = k2.cast_params(k2.MBConvParams(*[None if v is None else v.to(cuda_device) for v in p]),
+                        dtype)
+    got = k2.fused_mbconv_infer(xd, pd, **kw).float()
+    torch.cuda.synchronize()
+    want = k2.mbconv_infer_plain(xd, pd, **kw).float()
+    assert got.shape == want.shape
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel <= (1e-4 if dtype == torch.float32 else 1e-2), rel
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     x, p, kw = _case(CASES[0], (8, 8), 1, 8)
@@ -73,11 +98,17 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         k2.fused_mbconv_infer(xd.transpose(1, 2), pd, **kw)
     with pytest.raises(ValueError, match="is on cpu"):
         k2.fused_mbconv_infer(xd, p, **kw)
+    # bf16 rows are whole 16-byte chunks: 12 channels are not
+    x, p, kw = _case(CASES[1], (8, 8), 1, 12)
+    pd = k2.cast_params(k2.MBConvParams(*[None if v is None else v.to(cuda_device) for v in p]),
+                        torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        k2.fused_mbconv_infer(x.to(cuda_device, torch.bfloat16), pd, **kw)
 
 
 # K3, the banded MBConv: kernel against its plain version (the band
 # algorithm) at every divisor band of a small shape, and against K2 on the
-# same inputs; the tolerances are K2's.
+# same inputs; the tolerances are K2's, and in bf16 K3 equals K2 bit for bit.
 K3_CASES = [(3, 1, True, True), (3, 2, True, False), (5, 1, True, True),
             (5, 2, True, False), (3, 1, False, False), (5, 2, False, False)]
 
@@ -105,6 +136,8 @@ def test_k3_matches_plain_at_every_band(case, dtype, cuda_device):
         for ref in (want, k2_out):
             rel = float((got - ref).abs().max() / ref.abs().max())
             assert rel <= tol, (band, rel)
+        if dtype == torch.bfloat16:  # K2's expand, depthwise and project code
+            assert torch.equal(got, k2_out), band
 
 
 @pytest.mark.cuda

@@ -113,3 +113,69 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     want = tk.mbconv_infer_plain(torch.from_numpy(x), tp, **kw)
     assert torch.equal(got, want)
     assert tk.fused_mbconv_infer.launches == before
+
+
+# The tile planner (plan_k2) at every block shape the encoders give K2: its
+# shared memory fits a block, its grid covers every output pixel and
+# channel, and its channel groups tile Ce. Meta-device encoders: shapes only.
+VARIANTS = [("smoke", 64)] + [(f"b{i}", 448) for i in range(8)]
+
+
+def _k2_shapes(variant, size):
+    from pldepth_torch.models.efficientnet import EfficientNetEncoder
+    from pldepth_torch.models.fused_infer import plan_encoder
+
+    with torch.device("meta"):
+        enc = EfficientNetEncoder(variant, torch.bfloat16)
+    shapes = []
+    for plan in plan_encoder(enc, (size, size), torch.bfloat16):
+        p, tap = plan.params, plan.tap is not None
+        expand = p.we is not None and not tap  # a tap block's K2 call has no expand
+        cin = p.we.shape[0] if expand else p.dw.shape[-1]
+        shapes.append((plan.name, *plan.in_hw, cin, p.dw.shape[-1], p.wp.shape[-1],
+                       plan.kernel, plan.stride, expand))
+    return shapes
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("variant,size", VARIANTS)
+def test_plan_k2_fits_and_covers_every_block(variant, size, dtype):
+    shapes = _k2_shapes(variant, size)
+    assert len(shapes) >= 7 and any(not s[-1] for s in shapes)  # tap forms included
+    for name, h, w, cin, ce, cout, k, s, expand in shapes:
+        assert cin % 8 == 0 and ce % 8 == 0 and cout % 8 == 0, name
+        plan = tk.plan_k2(h, w, cin, ce, cout, kernel=k, stride=s, batch=8,
+                          has_expand=expand, dtype=dtype)
+        ho, wo = -(-h // s), -(-w // s)
+        # every output pixel in exactly one tile, no empty tile
+        assert plan.tiles_h * plan.th >= ho > (plan.tiles_h - 1) * plan.th, name
+        assert plan.tiles_w * plan.tw >= wo > (plan.tiles_w - 1) * plan.tw, name
+        # the channel groups tile Ce, the wide groups tile the groups
+        width = tk.CG if dtype == torch.bfloat16 else tk.F32_SLICE
+        assert plan.groups * width >= ce > (plan.groups - 1) * width, name
+        assert plan.wide * plan.gpb >= plan.groups > (plan.wide - 1) * plan.gpb, name
+        # the shared memory the kernel lays out, within one block's
+        ih, iw = (plan.th - 1) * s + k, (plan.tw - 1) * s + k
+        if dtype == torch.bfloat16:
+            assert plan.kp == (-(-cin // 16) * 16 if expand else 0), name
+            window = 2 * (ih * iw * (plan.kp + 8) + plan.kp * tk.HS) if expand else 0
+            want = 2 * (ih * iw + tk.DW_PAD) * tk.HS + window
+            assert plan.smem == want and plan.smem + tk.STATIC_SMEM <= 232_448, name
+            assert plan.proj_mt in (1, 2)
+        else:
+            assert plan.smem == ih * iw * 32 * 4 <= 232_448 - 4096, name
+
+
+def test_plan_k2_reads_the_window_once_per_wide_group():
+    """B0 at 448^2, batch 8: blocks take their 64-channel groups in wide
+    groups, so the Ce = 1152 blocks read each tile's window at most 9 times
+    (a quarter of the 36 reads of 32-channel slices); a plan is a pure,
+    memoised function."""
+    for name, h, w, cin, ce, cout, k, s, expand in _k2_shapes("b0", 448):
+        plan = tk.plan_k2(h, w, cin, ce, cout, kernel=k, stride=s, batch=8,
+                          has_expand=expand, dtype=torch.bfloat16)
+        assert plan.wide <= 18 and plan.wide <= -(-ce // 32), name
+        if ce == 1152:
+            assert plan.wide <= 9, (name, plan)
+        assert tk.plan_k2(h, w, cin, ce, cout, kernel=k, stride=s, batch=8,
+                          has_expand=expand, dtype=torch.bfloat16) is plan
