@@ -7,7 +7,8 @@ Phases (any failure exits non-zero):
   1. build the CUDA kernels from pldepth_torch/csrc with nvcc (sm_90a);
      log ptxas's registers, shared memory and spills per kernel and the
      tensor-core instructions (HMMA / HGMMA) in K2's and K3's SASS
-     (cuobjdump), failing if a bf16 expand or project kernel holds none;
+     (cuobjdump), failing if a bf16 expand or project kernel holds none
+     or a K1 kernel uses a stack frame or spills;
      print the card's name and power limit;
   2. K2 (fused MBConv) against its plain PyTorch version at the 16 shapes
      the ff_effnet (EfficientNet-B0) encoder gives it at 448^2, batch 2,
@@ -24,22 +25,32 @@ Phases (any failure exits non-zero):
      tensor flops at the bf16 peak, CUDA-core flops at the f32 peak; also
      with g written and read back); a torch.profiler kernel breakdown of
      predict_fused and the device's idle share;
-  5. K1 (the sorted ListMLE NLL, forward and backward) against its plain
+  5. K1: the sorted ListMLE NLL (forward and backward) against its plain
      PyTorch version in f32 at K in {3, 5, 25, 128, 500} x N in {1, 257,
      3200}, at every (N, K) the training phases give it (read from their
-     configs), and on a list whose scores spread by more than 87;
+     configs), and on a list whose scores spread by more than 87; the fused
+     ranking loss (gather, label sort, NLL, mean; the gradient map) against
+     ranking_loss_plain at the same (N, K), K = 1 and 12800 lists of K 10 on
+     448^2 maps, clean (ties, collisions, ragged N) and with faults (NaN
+     labels, out-of-range and negative indices, the spread > 87 list);
   6. the training slice: configs/ff_effnet_448.json at batch 32 (448^2,
      K=5, RPI=100, info_score, frozen encoder, bf16) on a seeded synthetic
      448^2 set through Trainer.fit, 20 steps with validation: finite
-     losses, K1 forward launches == steps + val batches and backward
+     losses, fused K1 forward launches == steps + val batches and backward
      launches == steps, frozen encoder convs bitwise unchanged, every BN's
      affine and running statistics moved, and the fixed-rankings loss of a
      batch trained on repeatedly falls;
   7. training times: ms per train step (CUDA events, rounds alternating
-     the K1 loss with the plain one), train images/s through fit, peak
-     device memory, the device idle share of a 3-step profiler window with
-     the top kernels, and K1 at N=3200, K=5 beside its plain version, its
-     bytes bound and one PyTorch call;
+     the fused K1 loss with the plain one), train images/s through fit,
+     peak device memory, the device idle share of a 3-step profiler window
+     with the top kernels; K1 at (N, K) in K1_TIME_SHAPES: the sorted and
+     the fused kernels as device time and per call with the host, beside
+     the plain versions, the unfused chain, the bounds and an empty kernel's
+     launch; the thread / warp layout sweep over K; the loss path of one
+     step alone (pl_ranking_loss and its gradient at ff_effnet batch 32
+     and ff_redweb batch 4): device time, launches and host time against
+     the unfused chain, gated to the fused forward, one fill and the fused
+     backward;
   8. K4 (the int8 tensor-core matmul and its window read in place) and the
      int8 serving path: K4 against its plain PyTorch version at the 38 dense
      int8 sites of ff_effnet at 448^2, batch 8, each through the entry point
@@ -100,6 +111,7 @@ import argparse
 import contextlib
 import copy
 import json
+import math
 import os
 import re
 import subprocess
@@ -118,6 +130,11 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # max|ref| at K=500, 1.1e-6 at K<=25); max|d| <= K1_ATOL + K1_RTOL * max|ref|
 K1_RTOL, K1_ATOL = 3e-5, 1e-5
 K1_SHAPES = [(n, k) for k in (3, 5, 25, 128, 500) for n in (1, 257, 3200)]
+# K1 timed at the main path's (ff_effnet batch 32, ff_redweb batch 4, RPI
+# 100, K 5), at 12800 lists of K 10, and at K 500
+K1_TIME_SHAPES = [(3200, 5), (400, 5), (12800, 10), (3200, 500)]
+K1_MAIN = "3200x5"  # the kernels line's K1 rows: ff_effnet's train step at batch 32
+LOSS_PATHS = (("ff_effnet", 32), ("ff_redweb", 4))  # (model, batch) at 448^2, RPI 100, K 5
 EFFNET_CONFIG, REDWEB_CONFIG = "ff_effnet_448.json", "ff_redweb_448.json"
 BATCH_TRAIN, N_TRAIN, N_VAL, EPOCHS = 32, 64, 32, 10  # 2 steps + 1 val batch per epoch
 K4_TOL = 1e-5  # f32 out: rtol = atol (tests/test_quantize.py:135)
@@ -209,7 +226,12 @@ def compiled_code(reports):
                 text = line.replace("ptxas info    :", "").strip()
                 rec["ptxas"].setdefault(f"{lib}:{fn}", []).append(text)
                 log(f"ptxas {lib} {fn}: {text}")
-    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    # K1 keeps its lists in registers and shared memory: no stack, no spill
+    local = [f"{key}: {text}" for key, lines in rec["ptxas"].items() if key.startswith("listmle:")
+             for text in lines if re.search(r"[1-9]\d* bytes (stack frame|spill)", text)]
+    if local:
+        fail(f"K1 kernels use local memory: {local}")
+    tool =os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
     if tool is None:
         log("SASS: cuobjdump not found; tensor-core instructions not checked")
@@ -490,6 +512,118 @@ def check_k1(device="cuda"):
             max(c["ds"]["max_abs_err"] for c in checks))
 
 
+def k1_batch(n: int) -> int:
+    """Images of a (N lists) check: 32 as phase 6 and 4 as phase 11 give
+    them, else as many as divide N (at most 32)."""
+    return 4 if n == 400 else math.gcd(n, BATCH_TRAIN)
+
+
+def ranking_case(n: int, k: int, faults: bool, size: int = SIZE, seed: int = 0,
+                 device="cuda"):
+    """(map (B, size^2), rankings (B, N / B, K, 2)) for a phase-5 check:
+    depths rounded to 1/255 (ties), every other list drawing its pixels from
+    a pool of 16 (repeats inside and across lists). With ``faults``: a NaN
+    label in every 5th list, in every 7th list one index from -1 (wraps to
+    the last pixel), -size^2 (wraps to 0), -size^2 - 1, size^2, 1e9 (out:
+    NaN, no gradient), NaN (reads 0, as XLA converts it) and -2.7 (wraps),
+    and list 0 in label order on scores 60 apart (a spread > 87: its NLL is
+    ~1e-26)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 7 * n + k)
+    b, p = k1_batch(n), size * size
+    rpi = n // b
+    pred = rng.normal(size=(b, p)).astype(np.float32) * 3
+    idx = rng.integers(0, p, size=(n, k)).astype(np.float32)
+    pool = rng.integers(0, p, size=16)
+    idx[1::2] = pool[rng.integers(0, 16, size=idx[1::2].shape)]
+    labels = (np.round(rng.uniform(0.05, 1.0, (n, k)) * 255) / 255).astype(np.float32)
+    if faults:
+        labels[::5, rng.integers(0, k)] = np.nan
+        bad = np.array([-1, -p, -p - 1, p, 1e9, np.nan, -2.7], np.float32)
+        idx[3::7, rng.integers(0, k)] = bad[np.arange(len(idx[3::7])) % len(bad)]
+        if k >= 2:  # list 0: pixels p-1 ... p-k of image 0, 60 apart, in label order
+            idx[0] = p - 1 - np.arange(k)
+            labels[0] = np.arange(k, 0, -1)
+            pred[0, p - k:] = -60.0 * np.arange(k)[::-1]
+    rankings = np.stack([idx, labels], -1).reshape(b, rpi, k, 2)
+    return (torch.from_numpy(pred).to(device),
+            torch.from_numpy(rankings.astype(np.float32)).to(device))
+
+
+def nan_close(what: str, got, want, atol: float = K1_ATOL, rtol: float = K1_RTOL):
+    """max|d| over the finite reference, after requiring NaN exactly where
+    the reference is NaN; fails beyond atol + rtol * max|ref|."""
+    import torch
+
+    got, want = got.float(), want.float()
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    if not torch.equal(gn, wn):
+        fail(f"{what}: NaN at {int(gn.sum())} places, the plain version at {int(wn.sum())}")
+    fin = ~wn
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    err = float((got[fin] - want[fin]).abs().max())
+    ref = float(want[fin].abs().max())
+    if not err <= atol + rtol * ref:
+        fail(f"{what} disagrees with its plain version: max|d| {err:.3e} (max|ref| {ref:.3e}, "
+             f"tol {atol:g} + {rtol:g} max|ref|)")
+    return err, ref
+
+
+def check_ranking_loss(device="cuda", size: int = SIZE):
+    """Phase 5: the fused K1 forward and backward against the plain loss
+    (``ranking_loss_plain`` and its autograd gradient) at every (N, K) of
+    K1_SHAPES and the training phases, at K = 1 and at 12800 lists of K 10,
+    on 448^2 maps, clean (ties, collisions, ragged N) and with faults (NaN
+    labels, out-of-range and negative indices, the spread > 87 list).
+    Per-list NLL, loss and lse within K1_ATOL + K1_RTOL max|ref| with NaN
+    where the reference is NaN, the sorted indices equal; the gradient map
+    (for a cotangent of N, so its entries are O(1)) within the same bound:
+    pixels that several lists share are summed in the atomics' order on
+    the card and in scatter_add's on the plain path. Returns (checks,
+    max|d| forward, max|d| backward)."""
+    import torch
+
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    shapes = sorted(set(K1_SHAPES) | set(k1_path_shapes()) | {(257, 1), (12800, 10)})
+    checks = []
+    for n, k in shapes:
+        for faults in (False, True):
+            pred, rk = ranking_case(n, k, faults, size, device=device)
+            name = f"N={n} K={k}{' faults' if faults else ''}"
+            g = torch.tensor(float(n), device=device)
+            loss, nll, lse, sidx = k1.ranking_loss_fwd(pred, rk)
+            grad = k1.ranking_loss_bwd(pred, lse, sidx, g)
+            if pred.is_cuda:
+                torch.cuda.synchronize()
+            ref_pred = pred.clone().requires_grad_(True)
+            want_nll = k1.ranking_nll_plain(ref_pred, rk)
+            want_loss = want_nll.mean()
+            (want_grad,) = torch.autograd.grad(want_loss, ref_pred, g)
+            _, _, want_lse, want_sidx = k1.ranking_loss_fwd_plain(pred, rk)
+            if not torch.equal(sidx, want_sidx):
+                fail(f"K1 fused {name}: sorted indices differ from the plain version's at "
+                     f"{int((sidx != want_sidx).sum())} places")
+            row = {"case": name, "n": n, "k": k, "faults": faults,
+                   "nan_lists": int(torch.isnan(want_nll).sum())}
+            for key, got, want in (("nll", nll, want_nll.detach()), ("loss", loss, want_loss),
+                                   ("lse", lse, want_lse), ("grad", grad, want_grad)):
+                err, ref = nan_close(f"K1 fused {name} {key}", got, want.detach())
+                row[key] = {"max_abs_err": err, "rel": err / max(ref, 1e-12)}
+            if faults and abs(float(nll[0])) > 1e-6:
+                fail(f"K1 fused {name}: the spread>87 list's NLL is {float(nll[0]):.3e}")
+            log(f"K1 fused vs plain {name:24s} nll max|d| {row['nll']['max_abs_err']:.3e}; loss "
+                f"{row['loss']['max_abs_err']:.3e}; grad max|d| {row['grad']['max_abs_err']:.3e} "
+                f"rel {row['grad']['rel']:.3e}; NaN lists {row['nan_lists']} "
+                f"(tol {K1_ATOL:g} + {K1_RTOL:g} max|ref|)")
+            checks.append(row)
+    return (checks, max(c[key]["max_abs_err"] for c in checks for key in ("nll", "loss", "lse")),
+            max(c["grad"]["max_abs_err"] for c in checks))
+
+
 def train_phase(config: str, size=SIZE, batch=None, n_train=N_TRAIN, n_val=N_VAL,
                 epochs=EPOCHS, device="cuda"):
     """Phases 6 and 11: a training config of configs/ through Trainer.fit
@@ -556,12 +690,13 @@ def train_phase(config: str, size=SIZE, batch=None, n_train=N_TRAIN, n_val=N_VAL
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     it = BatchIterator(train_ds, batch, seed=cfg.seed, prefetch=cfg.prefetch_depth)
-    k1.listmle_fwd.launches = k1.listmle_bwd.launches = 0
+    k1.ranking_loss_fwd.launches = k1.ranking_loss_bwd.launches = 0
     t0 = time.time()
     state, history = trainer.fit(state, it, val_iter_factory=lambda: val_batches(
         val_ds, val_rankings, batch))
     fit_s = time.time() - t0
-    launches = {"listmle_fwd": k1.listmle_fwd.launches, "listmle_bwd": k1.listmle_bwd.launches}
+    launches = {"ranking_loss_fwd": k1.ranking_loss_fwd.launches,
+                "ranking_loss_bwd": k1.ranking_loss_bwd.launches}
     it.close()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device == "cuda" else None
     n_steps = state.step
@@ -576,8 +711,8 @@ def train_phase(config: str, size=SIZE, batch=None, n_train=N_TRAIN, n_val=N_VAL
     if n_steps != epochs * steps_per_epoch or not np.all(np.isfinite(losses)):
         fail(f"training did not run {epochs * steps_per_epoch} finite steps: {history}")
     want_fwd = n_steps + epochs * n_val_batches
-    if device == "cuda" and (launches["listmle_fwd"] != want_fwd or
-                             launches["listmle_bwd"] != n_steps):
+    if device == "cuda" and (launches["ranking_loss_fwd"] != want_fwd or
+                             launches["ranking_loss_bwd"] != n_steps):
         fail(f"K1 launches {launches}, expected forward {want_fwd} (steps + val batches) "
              f"and backward {n_steps}")
     params = dict(model.named_parameters())
@@ -668,7 +803,7 @@ def kernel_window(fn, reps: int, spin: int = SPIN_KERNELS):
             sum(e.count for e in events))
 
 
-def full_windows(fn, reps: int, what: str, per_call=None, n=None, tries: int = 6,
+def full_windows(fn, reps: int, what: str, per_call=None, n=None, tries=None,
                  fatal: bool = True):
     """{kernel name: device ms per call} of ``n`` profiler windows of
     ``reps`` calls of ``fn`` that hold every kernel it launched. A window
@@ -678,8 +813,11 @@ def full_windows(fn, reps: int, what: str, per_call=None, n=None, tries: int = 6
     fullest window, and is taken again, with twice the spin kernels at its
     head each time. ``n`` defaults to 1 where ``per_call`` is known, else 2
     (two windows that agree). After ``tries`` windows without ``n`` full
-    ones it fails, or returns None where ``fatal`` is false."""
+    ones (default 12 where it fails, seen: 3 of 6 windows of a K3 block
+    short; 6 where the caller falls back) it fails, or returns None where
+    ``fatal`` is false."""
     n = n or (1 if per_call else 2)
+    tries = tries or (12 if fatal else 6)
     seen = []
     for attempt in range(tries):
         seen.append(kernel_window(fn, reps, SPIN_KERNELS << min(attempt, 4))[1:])
@@ -812,8 +950,8 @@ def served_img_per_s(predict_fn, decode, chunks, smi: str, what: str, n_e2e: int
     return n / wall
 
 
-def k1_times(smi: str, n: int = BATCH_TRAIN * 100, k: int = 5, device="cuda"):
-    """K1 forward and backward at the main path's shape beside the plain
+def sorted_k1_times(smi: str, n: int = BATCH_TRAIN * 100, k: int = 5, device="cuda"):
+    """The sorted K1 forward and backward at (n, k) beside the plain
     versions, the bound, and one PyTorch call (reverse logcumsumexp
     forward; its autograd backward). ``ms`` is device time per call (the
     profiler's kernel durations); ``call_ms`` the device-timeline time per
@@ -855,6 +993,246 @@ def k1_times(smi: str, n: int = BATCH_TRAIN * 100, k: int = 5, device="cuda"):
             f"the host launching back to back: {row['call_ms'] * 1e3:.2f} / "
             f"{row['plain_call_ms'] * 1e3:.2f} / {row['library_call_ms'] * 1e3:.2f} us [{smi}]")
     return out
+
+
+def kernel_split(fn, reps: int, what: str, per_call: int, match: str, rest=None) -> float:
+    """Device ms per call of the kernels of ``fn`` whose names hold
+    ``match`` (profiler windows that hold all its launches); where the
+    windows keep losing launches, graph_ms of ``fn`` less graph_ms of
+    ``rest`` (the other launches alone), logged."""
+    windows = full_windows(fn, reps, what, per_call, fatal=False)
+    ms = None if windows is None else sum(v for name, v in windows[0].items() if match in name)
+    if not ms:
+        ms = graph_ms(fn, reps) - (graph_ms(rest, reps) if rest else 0.0)
+        log(f"{what}: timed by CUDA-graph replay instead, {ms:.4f} ms per call")
+    return ms
+
+
+def fused_k1_cost(n: int, k: int, b: int, p: int):
+    """(bytes, ops) of the fused K1 forward and backward, and the bytes of
+    the backward's zero fill of the (b, p) map (stated apart). Forward:
+    the rankings (8 N K), the gathered scores (4 N K), lse and the sorted
+    indices written (8 N K), nll and the loss; backward: lse and the
+    indices read (8 N K), the scores gathered again (4 N K), the scattered
+    gradient (4 N K). Operations: a comparison sort's log2 K compares and
+    ~12 f32 operations an element forward, ~14 backward."""
+    fwd = (20 * n * k + 4 * n + 4, n * k * (math.log2(max(k, 2)) + 12))
+    bwd = (16 * n * k + 4, 14 * n * k)
+    return fwd, bwd, 4 * b * p
+
+
+def fused_k1_times(smi: str, n: int, k: int, floor_ms: float, device="cuda", reps: int = 200):
+    """The fused K1 forward and backward at (n, k) on 448^2 maps: device
+    time per launch (the backward's kernel apart from its zero fill), per
+    call with the host launching back to back (``call_ms``, fill
+    included), the plain versions, the unfused chain forward and backward as
+    the composition yardstick (no single PyTorch call computes the fused
+    function), the bound, the empty-kernel floor."""
+    import torch
+
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    b = k1_batch(n)
+    pred, rk = loss_inputs(b, n // b, k, seed=11, device=device)
+    flat = pred.detach().reshape(b, -1)
+    one = torch.ones((), device=device)
+    _, _, lse, sidx = k1.ranking_loss_fwd(flat, rk)
+    chain = chain_loss(pred, rk)
+    (fb, fo), (bb, bo), fill_bytes = fused_k1_cost(n, k, b, flat.shape[1])
+    out = {}
+    for name, fns, (nb, no) in (
+        ("ranking_loss_fwd", {"ms": lambda: k1.ranking_loss_fwd(flat, rk),
+                              "plain_ms": lambda: k1.ranking_loss_fwd_plain(flat, rk),
+                              "composition_ms": lambda: chain_loss(flat, rk)}, (fb, fo)),
+        ("ranking_loss_bwd", {"ms": lambda: k1.ranking_loss_bwd(flat, lse, sidx, one),
+                              "plain_ms": lambda: k1.ranking_loss_bwd_plain(flat, lse, sidx, one),
+                              "composition_ms": lambda: torch.autograd.grad(
+                                  chain, pred, one, retain_graph=True)}, (bb, bo)),
+    ):
+        with torch.no_grad() if name == "ranking_loss_fwd" else contextlib.nullcontext():
+            row = {key: device_ms(fn, reps, f"{name} {key}") for key, fn in fns.items()
+                   if key != "ms"}
+            if name == "ranking_loss_fwd":
+                row["ms"] = device_ms(fns["ms"], reps, f"{name} ms", per_call=1)
+            else:
+                row["ms"] = kernel_split(fns["ms"], reps, f"{name} ms", 2, "k1_bwd",
+                                         rest=lambda: torch.zeros_like(flat))
+                row["fill_ms"] = device_ms(lambda: torch.zeros_like(flat), reps, "fill", 1)
+                row["fill_bytes"] = fill_bytes
+                row["fill_bound_ms"] = fill_bytes / HBM_BYTES_PER_S * 1e3
+            row["call_ms"] = cuda_ms(fns["ms"], reps=reps, warmup=5)
+        row["bound_ms"], row["bound_by"] = bound_ms(nb, no, PEAK_FLOPS["float32"])
+        row.update(bytes=nb, ops=no, floor_ms=floor_ms)
+        out[name] = row
+        log(f"{name} N={n} K={k} (B={b}, 448^2 maps): device {row['ms'] * 1e3:.2f} us per "
+            f"launch, {row['ms'] / floor_ms:.2f}x the empty kernel's {floor_ms * 1e3:.2f} us; "
+            f"plain {row['plain_ms'] * 1e3:.2f} us, unfused chain {row['composition_ms'] * 1e3:.2f} "
+            f"us, bound {row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}: {nb} B)"
+            + (f", zero fill {row['fill_ms'] * 1e3:.2f} us (bound {row['fill_bound_ms'] * 1e3:.2f}"
+               f" us, {fill_bytes} B)" if "fill_ms" in row else "")
+            + f"; per call with the host launching back to back {row['call_ms'] * 1e3:.2f} us "
+            f"[{smi}]")
+    return out
+
+
+def k1_sweep(smi: str, n: int = BATCH_TRAIN * 100, ks=(5, 10, 25, 32, 64, 128, 500),
+             device="cuda", reps: int = 100):
+    """Device time per launch of the fused forward and backward at N = n,
+    448^2 maps, for each K in ``ks`` with each layout that takes it (the
+    thread layout only at K 3, 5, 10): where the warp layout takes over."""
+    import torch
+
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    rows = []
+    for k in ks:
+        b = k1_batch(n)
+        pred, rk = loss_inputs(b, n // b, k, seed=13, device=device)
+        flat = pred.detach().reshape(b, -1)
+        one = torch.ones((), device=device)
+        for layout in (("thread", "warp") if k in (3, 5, 10) else ("warp",)):
+            _, _, lse, sidx = k1.ranking_loss_fwd(flat, rk, layout=layout)
+            row = {"k": k, "layout": layout,
+                   "fwd_ms": device_ms(lambda: k1.ranking_loss_fwd(flat, rk, layout=layout),
+                                       reps, f"sweep fwd K={k} {layout}", per_call=1),
+                   "bwd_ms": kernel_split(
+                       lambda: k1.ranking_loss_bwd(flat, lse, sidx, one, layout=layout),
+                       reps, f"sweep bwd K={k} {layout}", 2, "k1_bwd",
+                       rest=lambda: torch.zeros_like(flat))}
+            rows.append(row)
+            log(f"K1 sweep N={n} K={k:3d} {layout:6s}: forward {row['fwd_ms'] * 1e3:.2f} us, "
+                f"backward {row['bwd_ms'] * 1e3:.2f} us per launch [{smi}]")
+    return rows
+
+
+def k1_times(smi: str, device="cuda"):
+    """Phase 7's K1 times: the empty-kernel launch floor; the sorted and the
+    fused kernels at every (N, K) of K1_TIME_SHAPES; the layout sweep."""
+    import torch
+
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    dev = torch.device(device)
+    floor = device_ms(lambda: k1.launch_floor(dev), 200, "empty kernel", per_call=1)
+    floor_call = cuda_ms(lambda: k1.launch_floor(dev), reps=200, warmup=5)
+    log(f"empty kernel of the listmle library: {floor * 1e3:.2f} us device, "
+        f"{floor_call * 1e3:.2f} us per call back to back [{smi}]")
+    out = {"floor_ms": floor, "floor_call_ms": floor_call, "sorted": {}, "fused": {}}
+    for n, k in K1_TIME_SHAPES:
+        out["sorted"][f"{n}x{k}"] = sorted_k1_times(smi, n, k, device)
+        out["fused"][f"{n}x{k}"] = fused_k1_times(smi, n, k, floor, device)
+    out["sweep"] = k1_sweep(smi, device=device)
+    return out
+
+
+def loss_inputs(batch: int, rpi: int = 100, k: int = 5, size: int = SIZE, seed: int = 0,
+                device="cuda"):
+    """A (batch, size, size, 1) f32 depth map that needs a gradient and
+    (batch, rpi, k, 2) f32 rankings as the samplers emit them: flat pixel
+    indices in [0, size^2), depths rounded to 1/255 (ties), seeded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pred = torch.from_numpy(rng.normal(size=(batch, size, size, 1)).astype(np.float32))
+    idx = rng.integers(0, size * size, size=(batch, rpi, k))
+    depth = np.round(rng.uniform(0.05, 1.0, (batch, rpi, k)) * 255) / 255
+    rankings = torch.from_numpy(np.stack([idx, depth], -1).astype(np.float32))
+    return pred.to(device).requires_grad_(True), rankings.to(device)
+
+
+def chain_loss(pred, rankings):
+    """The loss as the port computed it before the fused kernels: index
+    copy, gather, stable label argsort, take_along_dim, the sorted K1
+    kernel, mean (and their backwards). The composition yardstick."""
+    import torch
+
+    from pldepth_torch.ops.listmle_kernel import listmle_sorted
+
+    b, k = pred.shape[0], rankings.shape[-2]
+    idx = rankings[..., 0].to(torch.int64)
+    labels = rankings[..., 1].reshape(-1, k)
+    s = torch.gather(pred.reshape(b, -1), 1, idx.reshape(b, -1)).reshape(-1, k)
+    order = torch.argsort(-labels, dim=-1, stable=True)
+    return listmle_sorted(torch.take_along_dim(s, order, dim=-1)).mean()
+
+
+def window_launches(fn, reps: int, tries: int = 3):
+    """{kernel name: launches per call} of the fullest of ``tries``
+    profiler windows of ``reps`` calls (a window can lose launches)."""
+    from torch.autograd import DeviceType
+
+    best = {}
+    for _ in range(tries):
+        averages = kernel_window(fn, reps)[0]
+        got = {e.key: e.count / reps for e in averages if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0 and "spin_kernel" not in e.key}
+        if sum(got.values()) > sum(best.values()):
+            best = got
+    return best
+
+
+def loss_path_times(smi: str, reps: int = 50, device="cuda"):
+    """The loss path of one train step alone, from the (B, 448, 448, 1)
+    map to its gradient map (``torch.autograd.grad`` with a given
+    cotangent, so autograd fills no ones), at ff_effnet's batch 32 and
+    ff_redweb's batch 4 (RPI 100, K 5): ``pl_ranking_loss`` as the entry
+    point runs it (``loss``), the chain of the port before the fused
+    kernels (``chain``) and the plain loss (``plain``, impl="xla").
+    Each: device time per call (profiler windows), device launches per call
+    by kernel, ``call_ms`` (CUDA events, the host launching back to back)
+    and ``host_ms`` (the host's time to issue a call)."""
+    import torch
+
+    from pldepth_torch.ops.listmle import pl_ranking_loss
+
+    out = {}
+    for model, batch in LOSS_PATHS:
+        pred, rk = loss_inputs(batch, device=device)
+        one = torch.ones((), device=device)
+        fns = {"loss": lambda: torch.autograd.grad(pl_ranking_loss(pred, rk), pred, one),
+               "chain": lambda: torch.autograd.grad(chain_loss(pred, rk), pred, one),
+               "plain": lambda: torch.autograd.grad(pl_ranking_loss(pred, rk, impl="xla"),
+                                                    pred, one)}
+        rows = {}
+        for name, fn in fns.items():
+            launches = window_launches(fn, reps)
+            per_call = round(sum(launches.values()))
+            row = {"ms": device_ms(fn, reps, f"{model} loss path {name}", per_call=per_call),
+                   "call_ms": cuda_ms(fn, reps=reps, warmup=5),
+                   "launches": sum(launches.values()), "kernels": launches}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            row["host_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda.synchronize()
+            rows[name] = row
+            log(f"loss path {model} batch {batch} ({batch * 100} lists, K=5, map "
+                f"{SIZE}^2) {name}: device {row['ms'] * 1e3:.2f} us in {row['launches']:g} "
+                f"launches per call, {row['call_ms'] * 1e3:.2f} us per call back to back, host "
+                f"{row['host_ms'] * 1e3:.2f} us per call [{smi}]")
+            for kname, count in sorted(launches.items()):
+                log(f"    {count:g} x {kname[:120]}")
+        out[f"{model}_b{batch}"] = rows
+    return out
+
+
+def gate_loss_path(paths) -> None:
+    """The loss path alone (``pl_ranking_loss`` and its gradient) launches
+    exactly the fused forward, one zero fill and the fused backward: no
+    gather, sort, take_along_dim or scatter kernel of the composition."""
+    for path, rows in paths.items():
+        kernels = rows["loss"]["kernels"]
+        fwd = sum(c for name, c in kernels.items() if "k1_fwd" in name)
+        bwd = sum(c for name, c in kernels.items() if "k1_bwd" in name)
+        fill = sum(c for name, c in kernels.items() if "FillFunctor" in name)
+        composed = [name for name in kernels
+                    if re.search(r"gather|sort|take_along|scatter", name, re.I)]
+        if (fwd, bwd, fill) != (1, 1, 1) or len(kernels) != 3 or composed:
+            fail(f"loss path {path}: launches per call {kernels}; expected the fused forward, "
+                 f"one fill and the fused backward only")
+        log(f"loss path {path}: the fused forward, one fill and the fused backward, nothing else")
 
 
 @contextlib.contextmanager
@@ -1767,7 +2145,8 @@ def main() -> int:
     mark("4")
 
     # 5. K1 against its plain version ---------------------------------------------
-    record["k1_checks"], k1_fwd_err, k1_bwd_err = check_k1()
+    record["k1_checks"], _, _ = check_k1()
+    record["k1_fused_checks"], k1_fwd_err, k1_bwd_err = check_ranking_loss()
 
     mark("5")
 
@@ -1783,6 +2162,8 @@ def main() -> int:
     # 7. training times --------------------------------------------------------------
     record["train_times"] = train_times(trainer_t, state_t, cfg_t, smi)
     record["k1_times"] = k1t = k1_times(smi)
+    record["loss_path"] = loss_path_times(smi)
+    gate_loss_path(record["loss_path"])
     del trainer_t, state_t
     torch.cuda.empty_cache()
 
@@ -1852,11 +2233,12 @@ def main() -> int:
         "name": name, "route": "cuda", "source": "pldepth_torch/csrc/listmle.cu",
         "replaces": replaces,
         "launches": rec_t["launches"][name] + rec_rt["launches"][name], "max_abs_err": err,
-        **{key: k1t[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms")},
+        **{key: k1t["fused"][K1_MAIN][name][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by")},
+        "library_ms": None,  # no single PyTorch call computes the fused loss
     } for name, replaces, err in (
-        ("listmle_fwd", "pldepth_tpu/ops/listmle_pallas.py:111", k1_fwd_err),
-        ("listmle_bwd", "pldepth_tpu/ops/listmle_pallas.py:121", k1_bwd_err))] + [{
+        ("ranking_loss_fwd", "pldepth_tpu/ops/listmle_pallas.py:111", k1_fwd_err),
+        ("ranking_loss_bwd", "pldepth_tpu/ops/listmle_pallas.py:121", k1_bwd_err))] + [{
         "name": "quant_matmul", "route": "cuda", "source": "pldepth_torch/csrc/quant_matmul.cu",
         "replaces": "pldepth_tpu/ops/quant_matmul.py:44",
         "launches": rec_q["k4_launches_main_path"] + rec_rs["k4_launches_main_path"],

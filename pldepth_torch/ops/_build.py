@@ -37,8 +37,11 @@ SIGNATURES = {
         "banded_mbconv_infer": (_I, [_I] + [_P] * 18 + [_I] * 16 + [_P]),
     },
     "listmle": {
-        "listmle_fwd": (_I, [_P] * 3 + [_I] * 2 + [_P]),
-        "listmle_bwd": (_I, [_P] * 4 + [_I] * 2 + [_P]),
+        "ranking_loss_fwd": (_I, [_P] * 8 + [_I] * 5 + [_P]),
+        "ranking_loss_bwd": (_I, [_P] * 5 + [_I] * 5 + [_P]),
+        "listmle_fwd": (_I, [_P] * 3 + [_I] * 3 + [_P]),
+        "listmle_bwd": (_I, [_P] * 4 + [_I] * 3 + [_P]),
+        "listmle_empty": (_I, [_P]),
     },
     "quant_matmul": {
         "quant_matmul": (_I, [_P] * 6 + [_I] * 6 + [_P]),

@@ -2,15 +2,20 @@
 (``pldepth_tpu/ops/listmle.py``).
 
 Positions of each list are ordered by label, descending (a stable argsort of
--labels, ties by position); the NLL of a list is
+-labels, ties by position, NaN labels last); the NLL of a list is
 ``sum_i [log sum_{j>=i} exp(s_pi(j)) - s_pi(i)]``. Everything runs in f32.
+Ranked pixels are gathered by the rule of ``jnp.take_along_axis``: a
+negative index wraps once, one still outside the map reads NaN (so the
+loss is NaN and the trainer's finite guard refuses the step) and gets no
+gradient.
 
 Two implementations, chosen by ``impl`` (core/device.py:resolve_impl):
-``"pallas"`` runs K1, the hand-written CUDA kernel with its backward kernel
-(ops/listmle_kernel.py); ``"xla"`` runs :func:`listmle_sorted_plain`, reverse
-``torch.logcumsumexp`` with autograd's backward (the twin of
-``_listmle_sorted_xla``). ``"auto"`` is the kernel on CUDA and the plain
-version on the CPU.
+``"pallas"`` runs K1, the hand-written CUDA kernels (ops/listmle_kernel.py):
+:func:`pl_ranking_loss` is one fused launch forward (gather, label sort,
+NLL, mean) and one backward (the gradient map); :func:`listmle_nll` sorts
+in PyTorch and runs the sorted kernels. ``"xla"`` runs the plain PyTorch
+chain with autograd's backward (the twin of the JAX package's ``xla``
+loss). ``"auto"`` is the kernel on CUDA and the plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -18,51 +23,39 @@ from __future__ import annotations
 import torch
 
 from pldepth_torch.core.device import resolve_impl
-from pldepth_torch.ops.listmle_kernel import listmle_sorted
-
-
-def _sort_by_labels_desc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    order = torch.argsort(-labels, dim=-1, stable=True)
-    return torch.take_along_dim(scores, order, dim=-1)
+from pldepth_torch.ops.listmle_kernel import (  # noqa: F401  (gather_ranked_scores: API)
+    gather_ranked_scores,
+    listmle_fwd_plain,
+    listmle_sorted,
+    ranking_loss,
+    ranking_loss_plain,
+    sort_by_labels_desc,
+)
 
 
 def listmle_sorted_plain(s: torch.Tensor) -> torch.Tensor:
     """NLL of label-sorted lists, plain PyTorch. s: (N, K) -> (N,)."""
-    s = s.to(torch.float32)
-    lse = torch.logcumsumexp(s.flip(-1), dim=-1).flip(-1)
-    return (lse - s).sum(-1)
+    return listmle_fwd_plain(s.to(torch.float32))[0]
 
 
 def listmle_nll(scores: torch.Tensor, labels: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Per-list Plackett-Luce NLL. scores, labels: (N, K) -> (N,) f32."""
     if scores.shape != labels.shape:
         raise ValueError(f"shape mismatch {tuple(scores.shape)} vs {tuple(labels.shape)}")
-    s = _sort_by_labels_desc(scores.to(torch.float32), labels)
+    s = sort_by_labels_desc(scores.to(torch.float32), labels)
     if resolve_impl(impl, scores.device) == "pallas":
         return listmle_sorted(s)
     return listmle_sorted_plain(s)
 
 
-def gather_ranked_scores(pred_maps: torch.Tensor, point_idx: torch.Tensor) -> torch.Tensor:
-    """Predicted depths at flat ``x * W + y`` pixel indices.
-
-    pred_maps: (B, H, W) or (B, H, W, 1); point_idx: (B, RPI, K) integer.
-    Returns (B * RPI, K); the backward is autograd's scatter-add."""
-    b = pred_maps.shape[0]
-    flat = pred_maps.reshape(b, -1)
-    k = point_idx.shape[-1]
-    sel = torch.gather(flat, 1, point_idx.reshape(b, -1).long())
-    return sel.reshape(-1, k)
-
-
 def pl_ranking_loss(pred_maps: torch.Tensor, rankings: torch.Tensor,
                     impl: str = "auto") -> torch.Tensor:
-    """Mean ListMLE loss of predicted maps against (B, RPI, K, 2) f32
-    rankings ([..., 0] flat pixel index, [..., 1] ground-truth depth)."""
-    point_idx = rankings[..., 0].to(torch.int64)
-    gt_depths = rankings[..., 1].reshape(-1, rankings.shape[-2])
-    scores = gather_ranked_scores(pred_maps, point_idx)
-    return listmle_nll(scores, gt_depths, impl=impl).mean()
+    """Mean ListMLE loss of predicted (B, H, W[, 1]) maps against (B, RPI,
+    K, 2) f32 rankings ([..., 0] flat pixel index, [..., 1] ground-truth
+    depth)."""
+    if resolve_impl(impl, pred_maps.device) == "pallas":
+        return ranking_loss(pred_maps, rankings)
+    return ranking_loss_plain(pred_maps, rankings)
 
 
 def pl_ranking_loss_from_scores(scores: torch.Tensor, rankings: torch.Tensor,

@@ -6,7 +6,10 @@ tests/test_torch_cuda.py`` (tests/conftest.py imports JAX). K2 is held
 against its plain version at small, odd shapes: f32 at max|d| <= 1e-4
 max|ref| (TF32 off), bf16 at 2e-2 (one bf16 rounding of g or of the scale
 may land on the other side). K1 (forward and backward) is held against its
-plain version and run through autograd and one train step."""
+plain version and run through autograd and one train step; the fused K1
+(the whole ranking loss and its gradient map) against ``ranking_loss_plain``
+with collisions and out-of-range indices, one launch each way per loss and
+gradient, and a CUDA context that stays usable after a bad index."""
 
 import numpy as np
 import pytest
@@ -261,10 +264,128 @@ def test_train_step_on_the_card_runs_k1(cuda_device):
     state = trainer.init_state()
     ds = SyntheticDepthDataset(4, 64, 0)
     batch = {k: np.stack([ds[i][k] for i in range(2)]) for k in ("image", "gt", "mask")}
-    before = (k1.listmle_fwd.launches, k1.listmle_bwd.launches)
+    before = (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches)
     state, m = trainer.train_step(state, batch)
     assert bool(m.finite) and np.isfinite(float(m.loss))
-    assert (k1.listmle_fwd.launches, k1.listmle_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+# The fused K1 (gather, label sort, NLL, mean; the gradient map by atomics)
+# against ranking_loss_plain on 448^2 maps: per-list NLL and loss, and the
+# map for a cotangent of N (entries O(1)), within chip_smoke.py's bound;
+# pixels shared by several lists are summed in the atomics' order. NaN
+# exactly where the plain version is NaN.
+FUSED_CASES = [(3200, 5), (400, 5), (12800, 10), (257, 500)]
+
+
+def _fused_case(n, k, device, size=448, seed=0):
+    """(map (B, size^2), rankings (B, N / B, K, 2)): depths rounded to
+    1/255, half the lists on a pool of 16 pixels (collisions), every 7th
+    list with an index from -1, -size^2 - 1, size^2, NaN."""
+    rng = np.random.default_rng(seed + n + k)
+    b = 4 if n == 400 else int(np.gcd(n, 32))
+    p = size * size
+    pred = rng.normal(size=(b, p)).astype(np.float32) * 3
+    idx = rng.integers(0, p, size=(n, k)).astype(np.float32)
+    idx[1::2] = rng.integers(0, p, size=16)[rng.integers(0, 16, size=idx[1::2].shape)]
+    bad = np.array([-1, -p - 1, p, np.nan], np.float32)
+    idx[::7, rng.integers(0, k)] = bad[np.arange(len(idx[::7])) % 4]
+    labels = np.round(rng.uniform(0.05, 1.0, (n, k)) * 255) / 255
+    rk = np.stack([idx, labels], -1).reshape(b, n // b, k, 2).astype(np.float32)
+    return torch.from_numpy(pred).to(device), torch.from_numpy(rk).to(device)
+
+
+def _nan_close(got, want):
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    if bool(fin.any()):
+        _k1_close(got[fin], want[fin])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", FUSED_CASES)
+def test_fused_k1_matches_plain(n, k, cuda_device):
+    from pldepth_torch.ops import listmle_kernel as k1
+
+    pred, rk = _fused_case(n, k, cuda_device)
+    g = torch.tensor(float(n), device=cuda_device)
+    before = (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches)
+    loss, nll, lse, sidx = k1.ranking_loss_fwd(pred, rk)
+    grad = k1.ranking_loss_bwd(pred, lse, sidx, g)
+    torch.cuda.synchronize()
+    assert (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = pred.clone().requires_grad_(True)
+    want_nll = k1.ranking_nll_plain(ref, rk)
+    (want_grad,) = torch.autograd.grad(want_nll.mean(), ref, g)
+    _, _, want_lse, want_sidx = k1.ranking_loss_fwd_plain(pred, rk)
+    assert torch.equal(sidx, want_sidx)
+    assert bool(torch.isnan(want_nll).any()) and bool(torch.isfinite(want_nll).any())
+    _nan_close(nll, want_nll.detach())
+    _nan_close(loss, want_nll.detach().mean())
+    _nan_close(lse, want_lse)
+    _nan_close(grad, want_grad)
+    # without faults the loss is finite and agrees too
+    clean = rk.clone()
+    clean[..., 0] = torch.where(torch.isnan(clean[..., 0]) | (clean[..., 0] < 0) |
+                                (clean[..., 0] >= pred.shape[1]), 0.0, clean[..., 0])
+    loss = k1.ranking_loss_fwd(pred, clean, residuals=False)[0]
+    want = k1.ranking_loss_plain(pred, clean)
+    assert bool(torch.isfinite(loss))
+    _k1_close(loss, want)
+
+
+@pytest.mark.cuda
+def test_fused_k1_launches_once_each_way(cuda_device, monkeypatch):
+    """pl_ranking_loss + backward on the card: one fused forward and one
+    fused backward launch, never a plain version; eval (no grad) saves no
+    residuals."""
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.ops.listmle import pl_ranking_loss
+
+    pred, rk = _fused_case(400, 5, cuda_device, size=64)
+    ref = pred.cpu().reshape(4, 64, 64, 1).requires_grad_(True)
+    pl_ranking_loss(ref, rk.cpu()).backward()
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in ("ranking_loss_plain", "ranking_loss_fwd_plain", "ranking_loss_bwd_plain"):
+        monkeypatch.setattr(k1, name, refuse)
+    p = pred.reshape(4, 64, 64, 1).clone().requires_grad_(True)
+    before = (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches)
+    pl_ranking_loss(p, rk).backward()
+    torch.cuda.synchronize()
+    assert (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _nan_close(p.grad.cpu() * 400, ref.grad * 400)
+    with torch.no_grad():
+        loss = pl_ranking_loss(p, rk)
+    assert loss.grad_fn is None and loss.shape == ()
+    assert (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_fused_k1_out_of_range_index_keeps_the_context(cuda_device):
+    """An index outside the map gives a NaN loss (F4), never a device-side
+    assert: the context runs later work."""
+    from pldepth_torch.ops.listmle import pl_ranking_loss
+
+    pred = torch.randn(1, 4, 4, 1, device=cuda_device, requires_grad=True)
+    rk = torch.rand(1, 3, 5, 2, device=cuda_device)
+    rk[..., 0] = torch.randint(0, 16, (1, 3, 5), device=cuda_device).float()
+    rk[0, 0, 1, 0], rk[0, 1, 2, 0] = -1.0, 19.0
+    loss = pl_ranking_loss(pred, rk)
+    loss.backward()
+    torch.cuda.synchronize()
+    ref = pred.detach().cpu().requires_grad_(True)
+    pl_ranking_loss(ref, rk.cpu()).backward()
+    assert bool(torch.isnan(loss)) and bool(torch.isnan(pred.grad).any())
+    assert torch.equal(torch.isnan(pred.grad.cpu()), torch.isnan(ref.grad))
+    x = torch.arange(10.0, device=cuda_device)
+    assert float((x * 2).sum()) == 90.0
 
 
 # K4, the int8 tensor-core matmul: kernel against its plain version (exact

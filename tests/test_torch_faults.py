@@ -8,7 +8,11 @@ to the reference:
   ``predict``, as ``pldepth_tpu/train/trainer.py:predict_fused`` does;
 * F3: an unreadable ``best_val.json`` resets best-val tracking with a
   warning, and a truncated weights npz gives ``infer_decoder_head_ch`` its
-  default, as ``pldepth_tpu/train/checkpoint.py`` does.
+  default, as ``pldepth_tpu/train/checkpoint.py`` does;
+* F4: a ranking index outside the map gathers as ``jnp.take_along_axis``
+  does (a negative index wraps once, one still outside reads NaN and gets
+  no gradient), so the loss is NaN and the trainer's finite guard refuses
+  the step, where ``torch.gather`` raised.
 """
 
 import logging
@@ -20,6 +24,8 @@ import pytest
 import torch
 
 from pldepth_torch.core.config import ExperimentConfig
+from pldepth_torch.ops import listmle_kernel as k1
+from pldepth_torch.ops.listmle import pl_ranking_loss
 from pldepth_torch.sampling import rank_candidates
 from pldepth_torch.sampling.samplers import SAMPLERS, mask_to_gt_index
 from pldepth_torch.train import Trainer
@@ -28,6 +34,7 @@ from pldepth_torch.train.checkpoint import (
     infer_decoder_head_ch,
     save_weights_npz,
 )
+from pldepth_tpu.ops.listmle import pl_ranking_loss as j_pl_ranking_loss
 from pldepth_tpu.sampling import samplers as js
 
 torch.set_num_threads(1)
@@ -104,3 +111,69 @@ def test_f3_truncated_npz_gives_the_default_head_width(tmp_path):
     assert infer_decoder_head_ch(str(path), default=17) == 17
     path.write_bytes(b"")
     assert infer_decoder_head_ch(str(path), default=17) == 17
+
+
+def _f4_rankings(bad):
+    """B=1, 4x4 maps, RPI=3, K=5 rankings whose list 0 and list 1 each hold
+    one index from ``bad``."""
+    rng = np.random.default_rng(44)
+    idx = rng.integers(0, 16, size=(1, 3, 5)).astype(np.float32)
+    idx[0, 0, 1], idx[0, 1, 2] = bad
+    labels = rng.uniform(0.1, 1.0, size=(1, 3, 5)).astype(np.float32)
+    pred = rng.normal(size=(1, 4, 4, 1)).astype(np.float32)
+    return pred, np.stack([idx, labels], -1)
+
+
+def _port_loss_and_grad(fn, pred, rankings):
+    p = torch.from_numpy(pred).requires_grad_(True)
+    loss = fn(p, torch.from_numpy(rankings))
+    loss.backward()
+    return float(loss.detach()), p.grad.numpy()
+
+
+@pytest.mark.parametrize("bad", [(-1.0, 19.0), (-17.0, 16.0), (-3.5, 1e9)])
+def test_f4_out_of_range_ranking_index_gives_nan_like_jax(bad):
+    """Out of range after the one wrap (19, 16, -17, 1e9): a NaN loss and
+    NaN gradients at the list's other pixels, as JAX's loss gives with
+    impl "xla" and "pallas"; never an exception. The trainer refuses the
+    step through its finite guard."""
+    pred, rankings = _f4_rankings(bad)
+    for impl in ("xla", "pallas"):
+        j_loss, j_grad = jax.value_and_grad(
+            lambda p, impl=impl: j_pl_ranking_loss(p, jnp.asarray(rankings), impl=impl))(
+            jnp.asarray(pred))
+        j_grad = np.asarray(j_grad)
+        assert np.isnan(float(j_loss)) and np.isnan(j_grad).any()
+        for fn in (pl_ranking_loss, k1.ranking_loss):
+            loss, grad = _port_loss_and_grad(fn, pred, rankings)
+            assert np.isnan(loss)
+            np.testing.assert_array_equal(np.isnan(grad), np.isnan(j_grad))
+            np.testing.assert_allclose(grad, j_grad, rtol=0, atol=1e-6)
+
+    s = 32
+    tr = Trainer(ExperimentConfig(model_name="ff_smoke", input_size=s, batch_size=1,
+                                  ranking_size=5, rankings_per_image=3,
+                                  compute_dtype="float32"), device="cpu")
+    state = tr.init_state(torch.Generator().manual_seed(0))
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    rng = np.random.default_rng(1)
+    image = rng.uniform(size=(1, s, s, 3)).astype(np.float32)
+    rk = np.stack([rng.integers(0, s * s, (1, 3, 5)), rng.uniform(size=(1, 3, 5))], -1)
+    rk[0, 0, 1, 0], rk[0, 1, 2, 0] = -1, s * s + abs(bad[1])
+    state, m = tr.train_step_fixed(state, {"image": image, "rankings": rk.astype(np.float32)})
+    assert not bool(m.finite) and np.isnan(float(m.loss))
+    assert state.step == 1
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+
+def test_f4_negative_index_wraps_once_like_jax():
+    """-1 and -16 + 3 wrap to pixels 15 and 3 of a 4x4 map: the loss and its
+    gradient are finite and equal JAX's."""
+    pred, rankings = _f4_rankings((-1.0, -13.0))
+    j_loss, j_grad = jax.value_and_grad(
+        lambda p: j_pl_ranking_loss(p, jnp.asarray(rankings), impl="xla"))(jnp.asarray(pred))
+    for fn in (pl_ranking_loss, k1.ranking_loss):
+        loss, grad = _port_loss_and_grad(fn, pred, rankings)
+        np.testing.assert_allclose(loss, float(j_loss), rtol=1e-6)
+        np.testing.assert_allclose(grad, np.asarray(j_grad), rtol=0, atol=1e-6)

@@ -8,7 +8,15 @@ arithmetic the CUDA kernels implement. They are held against JAX
 128}, N in {1, 130}, and against ``impl="xla"`` at K=500: forward rel
 <= 1e-5 (atol 1e-6), gradients atol <= 1e-5. The spread > 87 list and the
 TF-reference loss golden (rtol 1e-5, as tests/test_full_parity.py) too.
-Inputs are made by numpy from a seed and handed to both packages."""
+The whole loss (``ranking_loss_plain``: gather by the rule of
+``jnp.take_along_axis``, label sort, NLL, mean) and its gradient map are
+held against JAX ``pl_ranking_loss`` (``impl="xla"``, and ``"pallas"`` in
+interpret mode) at K in {1, 3, 5, 10, 25, 128, 500} with ties, NaN labels,
+repeated pixels and the spread > 87 list: loss rtol 1e-6, map atol 1e-6
+plus 2e-6 of each entry (entries reach (j + 1) / N at list position j).
+The fused kernels' wrappers (``RankingLoss``) on the CPU are the plain
+versions. Inputs are made by numpy from a seed and handed to both
+packages."""
 
 import os
 
@@ -28,6 +36,7 @@ from pldepth_torch.ops.listmle import (
     pl_ranking_loss_from_scores,
 )
 from pldepth_tpu.ops.listmle import listmle_nll as j_listmle_nll
+from pldepth_tpu.ops.listmle import pl_ranking_loss as j_pl_ranking_loss
 from pldepth_tpu.ops.listmle_pallas import listmle_sorted as j_listmle_sorted
 
 torch.set_num_threads(1)
@@ -156,3 +165,74 @@ def test_pl_ranking_loss_and_map_gradient_match_jax():
         jnp.asarray(pred))
     np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-6)
     np.testing.assert_allclose(pt.grad.numpy(), np.asarray(jg), rtol=0, atol=1e-6)
+
+
+def _ranking_inputs(k, seed=0):
+    """(pred (2, S, S, 1), rankings (2, 16, K, 2)), S = 32 / 64 / 128 as K
+    grows (collisions stay the chosen ones): depths rounded to 1/255
+    (ties), a NaN label in list 1 of each image, the first 8 positions of
+    lists 2 and 3 on a pool of 5 pixels (repeats inside and across lists),
+    and in list 0 the two lowest labels on pixels of their own scoring -50
+    and -120 (its last suffix sits more than 87 below the list's max)."""
+    rng = np.random.default_rng(100 + seed + k)
+    b, rpi = 2, 16
+    s = 32 if k <= 25 else 64 if k <= 128 else 128
+    p = s * s
+    pred = rng.normal(size=(b, p)).astype(np.float32) * 3
+    idx = rng.integers(0, p - 2, size=(b, rpi, k)).astype(np.float32)
+    pool = rng.integers(0, p - 2, size=5)
+    m = min(k, 8)
+    idx[:, 2:4, :m] = pool[rng.integers(0, 5, size=(b, 2, m))]
+    labels = (np.round(rng.uniform(0.05, 1.0, (b, rpi, k)) * 255) / 255).astype(np.float32)
+    labels[:, 1, rng.integers(0, k)] = np.nan
+    if k >= 3:
+        low = np.argsort(labels[0, 0])[:2]  # the lowest label last
+        idx[0, 0, low] = [p - 1, p - 2]
+        pred[0, p - 2:] = [-50.0, -120.0]
+    return pred.reshape(b, s, s, 1), np.stack([idx, labels], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("k", [1, 3, 5, 10, 25, 128, 500])
+def test_ranking_loss_plain_matches_jax(k, impl):
+    pred, rankings = _ranking_inputs(k)
+    pt = torch.from_numpy(pred).requires_grad_(True)
+    loss = k1.ranking_loss_plain(pt, torch.from_numpy(rankings))
+    loss.backward()
+    jl, jg = jax.value_and_grad(
+        lambda p: j_pl_ranking_loss(p, jnp.asarray(rankings), impl=impl))(jnp.asarray(pred))
+    jg = np.asarray(jg)
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-6)
+    np.testing.assert_array_equal(np.isnan(pt.grad.numpy()), np.isnan(jg))
+    # an entry at list position j reaches (j + 1) / N (15 here at K = 500),
+    # where one f32 ulp is 1e-6: atol 1e-6 plus 2e-6 of the entry's size
+    np.testing.assert_allclose(pt.grad.numpy(), jg, rtol=2e-6, atol=1e-6)
+
+
+def test_ranking_loss_on_the_cpu_is_the_plain_version():
+    pred, rankings = _ranking_inputs(5, seed=1)
+    rk = torch.from_numpy(rankings)
+    before = (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches)
+    ref = torch.from_numpy(pred).requires_grad_(True)
+    want = k1.ranking_loss_plain(ref, rk)
+    want.backward()
+    pt = torch.from_numpy(pred).requires_grad_(True)
+    got = k1.ranking_loss(pt, rk)
+    assert got.grad_fn is not None and type(got.grad_fn).__name__ == "RankingLossBackward"
+    got.backward()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    torch.testing.assert_close(pt.grad, ref.grad, rtol=0, atol=1e-7)
+    flat = torch.from_numpy(pred).reshape(2, -1)
+    loss, nll, lse, sidx = k1.ranking_loss_fwd(flat, rk)
+    torch.testing.assert_close(nll, k1.ranking_nll_plain(flat, rk), rtol=0, atol=0)
+    assert sidx.dtype == torch.int32 and lse.shape == sidx.shape == (32, 5)
+    grad = k1.ranking_loss_bwd(flat, lse, sidx, torch.tensor(1.0))
+    torch.testing.assert_close(grad, ref.grad.reshape(2, -1), rtol=0, atol=1e-7)
+    assert k1.ranking_loss_fwd(flat, rk, residuals=False)[2:] == (None, None)
+    with torch.no_grad():
+        torch.testing.assert_close(k1.ranking_loss(pt, rk), want.detach(), rtol=1e-6, atol=0)
+    assert (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches) == before
+    with pytest.raises(ValueError, match="RPI, K, 2"):
+        k1.ranking_loss_fwd(flat, rk[..., :1])
+    with pytest.raises(TypeError, match="float32"):
+        k1.ranking_loss_fwd(flat.double(), rk)

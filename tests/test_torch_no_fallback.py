@@ -55,6 +55,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     ("listmle_kernel.py", "listmle_bwd"),
     ("listmle_kernel.py", "_launch"),
     ("listmle_kernel.py", "ListMLESorted"),
+    ("listmle_kernel.py", "ranking_loss_fwd"),
+    ("listmle_kernel.py", "ranking_loss_bwd"),
+    ("listmle_kernel.py", "RankingLoss"),
 ])
 def test_kernel_wrapper_has_no_fallback_path(module, fn):
     path = os.path.join(REPO, "pldepth_torch", "ops", module)
@@ -77,6 +80,20 @@ def test_auto_impl_sends_cuda_tensors_to_the_kernel(monkeypatch):
     monkeypatch.setattr(listmle, "listmle_sorted_plain",
                         lambda s: (_ for _ in ()).throw(AssertionError("plain")))
     listmle.listmle_nll(torch.zeros(3, 4), torch.zeros(3, 4), impl="auto")
+    assert seen == ["kernel"]
+
+
+def test_auto_impl_sends_cuda_maps_to_the_fused_kernel(monkeypatch):
+    """pl_ranking_loss with impl="auto" on a CUDA map takes the fused K1
+    Function (whose wrappers launch or raise), never the plain loss."""
+    from pldepth_torch.ops import listmle
+
+    seen = []
+    monkeypatch.setattr(listmle, "resolve_impl", lambda impl, dev: "pallas")
+    monkeypatch.setattr(listmle, "ranking_loss", lambda p, r: seen.append("kernel") or p.sum())
+    monkeypatch.setattr(listmle, "ranking_loss_plain",
+                        lambda p, r: (_ for _ in ()).throw(AssertionError("plain")))
+    listmle.pl_ranking_loss(torch.zeros(1, 4, 4, 1), torch.zeros(1, 2, 3, 2), impl="auto")
     assert seen == ["kernel"]
 
 
