@@ -100,7 +100,19 @@ Phases (any failure exits non-zero):
      (rel <= 1e-2), quant vs bn_fold recorded; ms per batch of
      predict_bnfold, predict and predict_quant, served images/s, the idle
      shares of predict_bnfold and predict_quant, and K4 per site shape as
-     in phase 9.
+     in phase 9;
+ 13. evaluation: cli train (configs/ff_effnet_448.json on 96 seeded
+     synthetic 448^2 images, one epoch, --parity_report true): K1 launches
+     both ways, a finite post-train line, summary.json and
+     parity_report.json with the JAX command's keys, the edge metrics and
+     example PNGs as far as this machine's cv2 and PIL allow (logged); cli
+     eval on those weights, 64 images at 448^2, host and device reports
+     within 0.03 / 0.03 / 0.05; the device metrics with injected indices
+     equal to the host numpy count (NDCG rel <= 1e-6); seconds per image of
+     both reports (CUDA events) and the share of the host path's numpy
+     draws; cli zeroshot on 8 seeded Ibims-layout files at 480x640 (scored
+     in ascending order) and, where PIL is present, DIODE, Sintel and DIW
+     trees at their datasets' sizes.
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -1985,6 +1997,363 @@ def serving_times(trainer, state, qstate, decode, chunks, smi: str):
     return rec
 
 
+EVAL_DS_SIZE, EVAL_LIMIT, ZS_FILES = 96, 64, 8
+# the zero-shot sets' image sizes (H, W)
+IBIMS_HW, DIODE_HW, SINTEL_HW, DIW_HW = (480, 640), (768, 1024), (436, 1024), (375, 500)
+EVAL_TOL = {"test_error": 0.03, "whdr_tau_0.03": 0.03, "ndcg_200": 0.05}  # device vs host
+PARITY_KEYS = {"test_error", "whdr_tau_0.03", "ndcg_200", "config", "parity"}
+EDGE_KEYS = {"depth_boundary_metric", "depth_completeness"}
+
+
+def import_state(name: str) -> str:
+    """What ``import name`` gives here: its version, or the error."""
+    import importlib
+
+    try:
+        mod = importlib.import_module(name)
+    except ImportError as e:
+        return f"not importable: {e}"
+    return f"version {getattr(mod, '__version__', '?')}"
+
+
+def run_cli(argv):
+    """``pldepth_torch.cli.main(argv)`` in this process; returns its standard
+    output's lines (echoed here) and its seconds on the host clock."""
+    import io
+
+    import torch
+
+    from pldepth_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    if rc != 0:
+        fail(f"cli {argv[0]} returned {rc}")
+    return lines, secs
+
+
+def json_report(lines, what: str) -> dict:
+    """The JSON object a command printed last (``eval`` / ``zeroshot`` print
+    one indented object)."""
+    start = max(i for i, line in enumerate(lines) if line.startswith("{"))
+    try:
+        return json.loads("\n".join(lines[start:]))
+    except json.JSONDecodeError as e:
+        fail(f"{what}: no JSON report on its output ({e})")
+
+
+def finite_report(rep: dict, what: str) -> None:
+    bad = {k: v for k, v in rep.items() if not isinstance(v, dict) and not math.isfinite(v)}
+    if bad:
+        fail(f"{what}: non-finite metrics {bad}")
+
+
+def injected_check(trainer, state, ds, device="cuda", pairs: int = 5000, ids: int = 200):
+    """Device metrics on the card with host-drawn indices against the host
+    numpy formulas in float32 (the device's dtype): disagreement fractions
+    equal, NDCG within rel 1e-6."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.eval import device_metrics as D
+
+    images = np.stack([ds[i]["image"] for i in range(BATCH_SERVE)])
+    gts = np.stack([ds[i]["gt"] for i in range(BATCH_SERVE)]).reshape(BATCH_SERVE, -1)
+    preds = trainer.predict(state, images).float().reshape(BATCH_SERVE, -1)
+    p_host = preds.cpu().numpy()
+    n = p_host.shape[1]
+    rng = np.random.default_rng(13)
+    idx = np.stack([rng.choice(n, 2 * pairs, replace=False) for _ in range(BATCH_SERVE)])
+    sel = np.stack([rng.choice(n, ids, replace=False) for _ in range(BATCH_SERVE)])
+    i0, i1 = idx[:, :pairs], idx[:, pairs:]
+    take = lambda a, i: np.take_along_axis(a, i, 1)  # noqa: E731
+    p0, p1, g0, g1 = take(p_host, i0), take(p_host, i1), take(gts, i0), take(gts, i1)
+    one, f32 = np.float32(1.0), np.float32
+
+    def rel(a, b):
+        r = (a + f32(1e-10)) / (b + f32(1e-10))
+        return np.where(r >= f32(1.03), 1, np.where(r <= f32(1 / 1.03), -1, 0))
+
+    counts = {0.0: ((p0 > p1) != (g0 > g1)).sum(1), 0.03: (rel(p0, p1) != rel(g0, g1)).sum(1)}
+    dev = [torch.from_numpy(a).to(device) for a in (gts, i0, i1, sel)]
+    out = {}
+    for tau, count in counts.items():
+        got = D.pairwise_disagreement(preds, dev[0], dev[1], dev[2], tau).cpu().numpy()
+        want = (one - f32(pairs - count) / f32(pairs)) if tau == 0.0 else f32(count) / f32(pairs)
+        if not np.array_equal(got, want.astype(np.float32)):
+            fail(f"pairwise_disagreement tau {tau} on the card: {got} != host {want}")
+        out[f"disagreeing_pairs_tau_{tau}"] = count.tolist()
+    pm = (p_host - p_host.min(1, keepdims=True)) / (
+        p_host.max(1, keepdims=True) - p_host.min(1, keepdims=True))
+    sp, sg = np.sort(take(pm, sel), 1), np.sort(take(gts, sel), 1)
+    w = np.log2(np.arange(ids, dtype=np.float32) + f32(2))
+    want = (one / (sp + one) / w).sum(1) / (one / (sg + one) / w).sum(1)
+    got = D.ndcg_sampled(preds, dev[0], dev[3]).cpu().numpy()
+    nd_rel = float(np.abs(got / want - 1).max())
+    if nd_rel > 1e-6:
+        fail(f"ndcg_sampled on the card vs host float32: rel {nd_rel:.3e} > 1e-6")
+    out["ndcg_rel"] = nd_rel
+    log(f"device metrics on the card, injected indices ({BATCH_SERVE} maps of {n} pixels, "
+        f"{pairs} pairs): disagreement equal to the host count at tau 0 and 0.03; NDCG rel "
+        f"{nd_rel:.2e} (tol 1e-6)")
+    return out
+
+
+def report_times(trainer, state, ds, smi: str):
+    """Seconds per image of full_report (host metrics) and full_report_device
+    on a decoded, cached set (CUDA events around the whole report, the
+    second of two runs), and the share of the host path's three
+    RandomState.choice draws (host clock)."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.eval.evaluator import Evaluator
+
+    ev = Evaluator(trainer, state)
+    n = len(ds)
+    out = {}
+    for name, fn in (("host", ev.full_report), ("device", ev.full_report_device)):
+        for _ in range(2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn(ds)
+            end.record()
+            end.synchronize()
+        out[f"{name}_s_per_image"] = start.elapsed_time(end) / 1e3 / n
+    size = ds[0]["gt"].size
+    pairs, ids = 2 * min(5000, size // 2), min(200, size)  # the metrics' small-image guards
+    t0 = time.perf_counter()
+    for _ in range(n):
+        np.random.RandomState(10).choice(size, pairs, replace=False)
+        np.random.RandomState(10).choice(size, pairs, replace=False)
+        np.random.RandomState(69).choice(size, ids, replace=False)
+    out["host_draws_s_per_image"] = (time.perf_counter() - t0) / n
+    out["host_draws_share"] = out["host_draws_s_per_image"] / out["host_s_per_image"]
+    log(f"report over {n} images at {ds[0]['gt'].shape[0]}^2: host path "
+        f"{out['host_s_per_image'] * 1e3:.3f} ms per image (its three numpy draws of "
+        f"{size} pixels: {out['host_draws_s_per_image'] * 1e3:.3f} ms, "
+        f"{100 * out['host_draws_share']:.1f}%), device path "
+        f"{out['device_s_per_image'] * 1e3:.3f} ms per image [{smi}]")
+    return out
+
+
+def seeded_scene(rng, hw):
+    """(image (H, W, 3) in 0-255, depth (H, W) in metres), float32: depth
+    grows left to right with a step at a random row; red is inverse depth."""
+    import numpy as np
+
+    yy, xx = np.mgrid[: hw[0], : hw[1]].astype(np.float32)
+    depth = 1.0 + 4.0 * xx / hw[1] + rng.uniform(0, 3) * (yy > hw[0] * rng.uniform(0.3, 0.7))
+    depth = (depth + rng.normal(0, 0.05, hw)).astype(np.float32)
+    image = np.stack([255 * (depth.min() / depth), rng.uniform(0, 255, hw), np.full(hw, 128.0)],
+                     -1).astype(np.float32)
+    return image, depth
+
+
+def write_ibims(root: str, n: int, hw, seed: int = 0) -> None:
+    """Seeded files in the Ibims layout: a data struct, image at field 2 in
+    0-255, depth at field 3."""
+    import numpy as np
+    from scipy import io as sio
+
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        image, depth = seeded_scene(rng, hw)
+        data = np.zeros((1, 1), dtype=[("a", "O"), ("b", "O"), ("rgb", "O"), ("depth", "O")])
+        data[0, 0]["a"], data[0, 0]["b"] = np.zeros(1), np.zeros(1)
+        data[0, 0]["rgb"], data[0, 0]["depth"] = image, depth
+        sio.savemat(os.path.join(root, f"ibims_{i:02d}.mat"), {"data": data})
+
+
+def write_png_sets(tmp: str, n: int, seed: int = 1) -> dict:
+    """Seeded DIODE (png + _depth.npy), Sintel (images/ + depth_viz/ pngs)
+    and DIW (jpgs + DIW_test.csv, one pair each, 1-indexed) trees at their
+    datasets' sizes. Returns {flag: root}."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    roots = {k: os.path.join(tmp, k) for k in ("diode", "sintel", "diw")}
+    scene = os.path.join(roots["diode"], "val", "indoors", "scene_00000")
+    frames = [os.path.join(roots["sintel"], d, "alley_1") for d in ("images", "depth_viz")]
+    for d in (scene, *frames, os.path.join(roots["diw"], "DIW_test")):
+        os.makedirs(d)
+    csv = []
+    for i in range(n):
+        image, depth = seeded_scene(rng, DIODE_HW)
+        Image.fromarray(image.astype(np.uint8)).save(os.path.join(scene, f"{i:05d}.png"))
+        np.save(os.path.join(scene, f"{i:05d}_depth.npy"), depth[..., None])
+        image, depth = seeded_scene(rng, SINTEL_HW)
+        Image.fromarray(image.astype(np.uint8)).save(os.path.join(frames[0], f"frame_{i:04d}.png"))
+        Image.fromarray((255 * depth / depth.max()).astype(np.uint8)).save(
+            os.path.join(frames[1], f"frame_{i:04d}.png"))
+        image, depth = seeded_scene(rng, DIW_HW)
+        Image.fromarray(image.astype(np.uint8)).save(
+            os.path.join(roots["diw"], "DIW_test", f"{i:03d}.jpg"), quality=95)
+        ya, yb = rng.integers(1, DIW_HW[0] + 1, 2)
+        xa, xb = rng.integers(1, DIW_HW[1] + 1, 2)
+        rel = ">" if depth[ya - 1, xa - 1] > depth[yb - 1, xb - 1] else "<"
+        csv += [f"/DIW_test/{i:03d}.jpg", f"{ya},{xa},{yb},{xb},{rel},{DIW_HW[1]},{DIW_HW[0]}"]
+    with open(os.path.join(roots["diw"], "DIW_test.csv"), "w") as f:
+        f.write("\n".join(csv) + "\n")
+    return roots
+
+
+def eval_phase(smi: str) -> dict:
+    """Phase 13: cli train with the post-train report, cli eval on both
+    paths, device metrics with injected indices, report times, cli zeroshot
+    on Ibims files."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch import cli
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.data.datasets import get_dataset
+    from pldepth_torch.eval import Evaluator
+    from pldepth_torch.eval import metrics as M
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.train import Trainer
+    from pldepth_torch.train.checkpoint import infer_decoder_head_ch, load_weights_npz
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    model = load_config(EFFNET_CONFIG).model_name
+    libs = {m: import_state(m) for m in ("cv2", "PIL", "h5py", "scipy")}
+    rec = {"imports": libs, **{f"has_{m}": not v.startswith("not") for m, v in libs.items()}}
+    log(f"optional host libraries: {libs}")
+    with tempfile.TemporaryDirectory() as tmp:
+        # train: ff_effnet at 448^2 from BASELINE config #1, one epoch, the
+        # post-train block with the parity report (timed alone)
+        real_post = cli._post_train_eval
+
+        def timed_post(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real_post(*a, **k)
+            torch.cuda.synchronize()
+            rec["post_train_s"] = time.perf_counter() - t0
+
+        cli._post_train_eval = timed_post
+        k1.ranking_loss_fwd.launches = k1.ranking_loss_bwd.launches = 0
+        try:
+            lines, rec["train_cli_s"] = run_cli([
+                "train", "--config_json", os.path.join(here, "configs", EFFNET_CONFIG),
+                "--dataset", "synthetic", "--ds_size", str(EVAL_DS_SIZE), "--epochs", "1",
+                "--parity_report", "true", "--parity_target_whdr", "1.0",
+                "--output_dir", tmp, "--run_name", "eval"])
+        finally:
+            cli._post_train_eval = real_post
+        rec["k1_launches"] = {"ranking_loss_fwd": k1.ranking_loss_fwd.launches,
+                              "ranking_loss_bwd": k1.ranking_loss_bwd.launches}
+        if min(rec["k1_launches"].values()) == 0:
+            fail(f"cli train did not launch the fused K1 both ways: {rec['k1_launches']}")
+        post = json.loads(next(line for line in lines if line.startswith('{"test_error"')))
+        finite_report(post, "post-train evaluation")
+        verdict = [line for line in lines if line.startswith("PARITY ")]
+        run = os.path.join(tmp, "eval")
+        with open(os.path.join(run, "summary.json")) as f:
+            summary = json.load(f)
+        with open(os.path.join(run, "parity_report.json")) as f:
+            parity = json.load(f)
+        if summary != post or set(summary) != {"test_error", "ndcg_200"}:
+            fail(f"summary.json {summary} is not the post-train line {post}")
+        if not PARITY_KEYS <= set(parity) or set(parity) - PARITY_KEYS - EDGE_KEYS or not verdict:
+            fail(f"parity_report.json keys {sorted(parity)} / verdict line {verdict}")
+        finite_report(parity, "parity report")
+        rec.update(post_train=post, parity_report=parity, parity_line=verdict[0])
+        if EDGE_KEYS & set(parity):
+            log("edge metrics in the parity report: cv2 is present")
+        else:
+            why = ("cv2 is present but Canny found no edges in these maps" if rec["has_cv2"]
+                   else "cv2 does not import on this machine")
+            log(f"edge metrics (depth_boundary_metric, depth_completeness) left out of the "
+                f"parity report: {why}")
+        pngs = sorted(os.listdir(os.path.join(run, "examples")))
+        rec["example_pngs"] = pngs
+        if rec["has_PIL"] and len(pngs) != 3:
+            fail(f"log_images wrote {pngs} with PIL present")
+        if not rec["has_PIL"]:
+            log("log_images wrote no PNG: this machine has no PIL (the warnings above say so)")
+        n_val = EVAL_DS_SIZE // load_config(EFFNET_CONFIG).val_split_denom
+        log(f"post-train block: {rec['post_train_s']:.3f} s on {n_val} val images "
+            f"at {SIZE}^2 (calc_err, dcg_metric, example, full_report); cli train "
+            f"{rec['train_cli_s']:.1f} s in all; K1 launches {rec['k1_launches']} [{smi}]")
+
+        # eval: both paths through the CLI, then the same reports timed
+        weights = os.path.join(run, "weights.npz")
+        common = ["eval", "--model_name", model, "--load_model_path", weights,
+                  "--dataset", "synthetic", "--input_size", str(SIZE), "--limit", str(EVAL_LIMIT)]
+        reports = {}
+        for flag in ("false", "true"):
+            lines, secs = run_cli(common + ["--device_metrics", flag])
+            reports[flag] = json_report(lines, f"cli eval --device_metrics {flag}")
+            finite_report(reports[flag], f"cli eval --device_metrics {flag}")
+            rec[f"eval_cli_s_device_metrics_{flag}"] = secs
+        rec["eval_host"], rec["eval_device"] = reports["false"], reports["true"]
+        gaps = {k: abs(reports["true"][k] - reports["false"][k]) for k in EVAL_TOL}
+        rec["eval_gaps"] = gaps
+        log(f"cli eval {EVAL_LIMIT} images at {SIZE}^2: device vs host report {gaps} "
+            f"(tol {EVAL_TOL})")
+        if any(gaps[k] > EVAL_TOL[k] for k in EVAL_TOL):
+            fail(f"the device report is off the host report: {gaps}")
+
+        cfg = ExperimentConfig(model_name=model, input_size=SIZE,
+                               decoder_head_ch=infer_decoder_head_ch(weights))
+        trainer = Trainer(cfg, steps_per_epoch=1)
+        state = load_weights_npz(weights, trainer.init_state())
+        ds = get_dataset("synthetic", target_size=SIZE, size=EVAL_LIMIT).cached()
+        rec["injected"] = injected_check(trainer, state, ds)
+        rec["times"] = report_times(trainer, state, ds, smi)
+
+        # zeroshot: seeded files in the Ibims layout at Ibims' 480x640, and
+        # where PIL is present DIODE, Sintel and DIW trees at their sizes
+        ibims = os.path.join(tmp, "ibims")
+        os.makedirs(ibims)
+        write_ibims(ibims, ZS_FILES, IBIMS_HW)
+        roots = {"ibims": ibims, **(write_png_sets(tmp, ZS_FILES) if rec["has_PIL"] else {})}
+        lines, rec["zeroshot_cli_s"] = run_cli([
+            "zeroshot", "--model_name", model, "--load_model_path", weights,
+            "--input_size", str(SIZE), *[a for k, root in roots.items()
+                                         for a in (f"--{k}_root", root)]])
+        zs = json_report(lines, "cli zeroshot")
+        dense = set(roots) - {"diw"}
+        if set(zs) != set(roots) or any(set(zs[k]) != {"ordinal_error", "whdr_0.03"}
+                                        for k in dense):
+            fail(f"cli zeroshot report {zs} for roots {sorted(roots)}")
+        for k in dense:
+            finite_report(zs[k], f"cli zeroshot {k}")
+        if "diw" in zs and not (zs["diw"]["n_pairs"] == zs["diw"]["n_images"] == ZS_FILES
+                                and 0.0 <= zs["diw"]["diw_whdr"] <= 1.0):
+            fail(f"cli zeroshot DIW report {zs['diw']}")
+        zds = get_dataset("IBIMS", root=ibims, target_size=SIZE)
+        preds = list(Evaluator(trainer, state)._predict_dataset(zds))
+        flipped = float(np.mean([M.ordinal_error(p, g, invert_pred_order=True) for p, g in preds]))
+        plain = float(np.mean([M.ordinal_error(p, g) for p, g in preds]))
+        if not (zds.asc_depth_order and len(zds) == ZS_FILES
+                and abs(zs["ibims"]["ordinal_error"] - flipped) <= 1e-3):
+            fail(f"zeroshot Ibims did not score in ascending order: {zs['ibims']} vs inverted "
+                 f"{flipped} / not inverted {plain}")
+        rec["zeroshot"] = zs
+        log(f"cli zeroshot, {ZS_FILES} files a set ({sorted(roots)}; Ibims {IBIMS_HW}, DIODE "
+            f"{DIODE_HW}, Sintel {SINTEL_HW}, DIW {DIW_HW} -> {SIZE}^2): {zs}; Ibims in "
+            f"ascending order (the descending comparison would read {plain:.4f}) "
+            f"[{rec['zeroshot_cli_s']:.1f} s]")
+        held = ([] if rec["has_PIL"] else ["DIODE", "Sintel", "DIW"]) + (
+            [] if rec["has_h5py"] else ["TUM"])
+        if held:
+            log(f"held on the CPU only (tests/test_torch_zeroshot.py), their readers' library "
+                f"missing here: {held}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every number here as JSON")
@@ -2214,6 +2583,11 @@ def main() -> int:
     record["redweb_serve"] = rec_rs = redweb_serve_phase(decode, chunks, smi)
 
     mark("12")
+
+    # 13. evaluation: cli train's post-train report, cli eval, cli zeroshot ------------------
+    record["eval"] = eval_phase(smi)
+
+    mark("13")
 
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",

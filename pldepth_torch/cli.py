@@ -1,16 +1,19 @@
-"""Command line of the port: ``python -m pldepth_torch.cli train|predict|serve ...``.
+"""Command line of the port: ``python -m pldepth_torch.cli train|eval|zeroshot|predict|serve ...``.
 
-The ``train``, ``predict`` and ``serve`` commands of ``pldepth_tpu/cli.py``
-with the same flag names, defaults and ``true``/``false`` booleans, written
-with argparse, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-versions of the kernels). ``train`` runs ``Trainer.fit`` and saves
-``weights.npz``; the post-train evaluation that follows in the JAX command
-comes with the eval slice (ROADMAP.md queue 1 item 8). ``predict`` and
-``serve`` with their default flags serve the int8 graph of the ff_effnet
-family (dense convs on K4, ops/quant_matmul.py), calibrated on the first
-input batch(es), and the BN-folded graph of ff_redweb. Options the
-port does not run yet raise NotImplementedError naming their ROADMAP item.
-The other commands come with later slices (ROADMAP.md queue 1).
+The ``train``, ``eval``, ``zeroshot``, ``predict`` and ``serve`` commands of
+``pldepth_tpu/cli.py`` with the same flag names, defaults and
+``true``/``false`` booleans, written with argparse, plus ``--device``
+(default ``cuda``; ``cpu`` runs the plain versions of the kernels).
+``train`` runs ``Trainer.fit``, saves ``weights.npz`` and evaluates the
+trained weights on up to 250 validation images (``summary.json``, an
+example image, and with ``--parity_report true`` the verdict of
+docs/PARITY.md in ``parity_report.json``). ``eval`` is the test-set report,
+``zeroshot`` the cross-dataset suite (Ibims, DIODE, Sintel, TUM, DIW).
+``predict`` and ``serve`` with their default flags serve the int8 graph of
+the ff_effnet family (dense convs on K4, ops/quant_matmul.py), calibrated
+on the first input batch(es), and the BN-folded graph of ff_redweb. Options
+the port does not run yet raise NotImplementedError naming their ROADMAP
+item. The other commands come with later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ def _add_train_options(tr: argparse.ArgumentParser) -> None:
       help="0=thresholded 1=info_score 2=masked 3=purely_masked 4=segment")
     a("--lr_multi", default=0.25, type=float)
     a("--ds_size", default=None, type=int)
-    a("--dataset", default="synthetic", help="HR-WSI | synthetic")
+    a("--dataset", default="synthetic",
+      help="HR-WSI | synthetic (IBIMS | DIODE | SINTEL | TUM are test-only)")
     a("--data_root", default="")
     a("--input_size", default=224, type=int)
     a("--schedule", default="sgdr", choices=["sgdr", "step", "constant"])
@@ -103,6 +107,30 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pldepth_torch")
     sub = p.add_subparsers(dest="command", required=True)
     _add_train_options(sub.add_parser("train", help="the main training experiment"))
+    ev = sub.add_parser("eval", help="test-set evaluation (reference test_data_eval.py)")
+    ev.add_argument("--model_name", default="ff_effnet")
+    ev.add_argument("--load_model_path", required=True)
+    ev.add_argument("--dataset", default="HR-WSI")
+    ev.add_argument("--data_root", default="")
+    ev.add_argument("--input_size", default=224, type=int)
+    ev.add_argument("--ranking_size", default=5, type=int)
+    ev.add_argument("--limit", default=None, type=int)
+    ev.add_argument("--tau", default=0.03, type=float)
+    ev.add_argument("--device_metrics", default=False, type=_bool,
+                    help="compute ordinal/WHDR/NDCG on the device (statistically "
+                         "equivalent, excludes edge metrics)")
+    ev.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    zs = sub.add_parser("zeroshot", help="zero-shot cross-dataset ordinal suite")
+    zs.add_argument("--model_name", default="ff_effnet")
+    zs.add_argument("--load_model_path", required=True)
+    zs.add_argument("--input_size", default=224, type=int)
+    zs.add_argument("--limit", default=None, type=int)
+    for root in ("ibims", "diode", "sintel", "tum"):
+        zs.add_argument(f"--{root}_root", default="")
+    zs.add_argument("--diw_root", default="",
+                    help="DIW root: official layout, DIW_test.csv + images "
+                         "(human ordinal pairs -> diw_whdr; data/diw.py)")
+    zs.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     pr = sub.add_parser("predict", help="batched depth-map inference (serving path)")
     pr.add_argument("--model_name", default="ff_effnet")
     pr.add_argument("--load_model_path", required=True)
@@ -147,21 +175,73 @@ def _add_serving_mode_options(p: argparse.ArgumentParser, calib: str) -> None:
                         f"bn_fold graph; {calib}")
 
 
-def _serving_trainer(args: argparse.Namespace):
-    """(trainer, state, serving mode) from the weights of ``--load_model_path``."""
+def _loaded_trainer(args: argparse.Namespace, **cfg_values):
+    """(trainer, state) with the weights of ``--load_model_path``."""
     from pldepth_torch.core.config import ExperimentConfig
     from pldepth_torch.train.checkpoint import infer_decoder_head_ch, load_weights_npz
     from pldepth_torch.train.trainer import Trainer
 
     cfg = ExperimentConfig(
         model_name=args.model_name, input_size=args.input_size,
-        decoder_head_ch=infer_decoder_head_ch(args.load_model_path),
+        decoder_head_ch=infer_decoder_head_ch(args.load_model_path), **cfg_values,
     )
+    trainer = Trainer(cfg, steps_per_epoch=1, device=args.device)
+    return trainer, load_weights_npz(args.load_model_path, trainer.init_state())
+
+
+def _serving_trainer(args: argparse.Namespace):
+    """(trainer, state, serving mode) from the weights of ``--load_model_path``."""
+    from pldepth_torch.train.trainer import Trainer
+
     mode = Trainer.serving_mode(args.fused_encoder, args.bn_fold, args.quantize,
                                 model_name=args.model_name)
-    trainer = Trainer(cfg, steps_per_epoch=1, device=args.device)
-    state = load_weights_npz(args.load_model_path, trainer.init_state())
+    trainer, state = _loaded_trainer(args)
     return trainer, state, mode
+
+
+def eval_cmd(args: argparse.Namespace) -> dict:
+    """Test-set evaluation (reference test_data_eval.py:30-104)."""
+    from pldepth_torch.data.datasets import get_dataset
+    from pldepth_torch.eval.evaluator import Evaluator
+
+    trainer, state = _loaded_trainer(args, ranking_size=args.ranking_size,
+                                     dataset=args.dataset, data_root=args.data_root)
+    if args.dataset.lower() == "synthetic":
+        ds = get_dataset("synthetic", target_size=args.input_size, size=args.limit or 64)
+    else:
+        ds = get_dataset(args.dataset, root=args.data_root, target_size=args.input_size)
+    ev = Evaluator(trainer, state)
+    if args.device_metrics:
+        return ev.full_report_device(ds, limit=args.limit, tau=args.tau)
+    return ev.full_report(ds, limit=args.limit, tau=args.tau)
+
+
+def zeroshot(args: argparse.Namespace) -> dict:
+    """Zero-shot cross-dataset ordinal suite (BASELINE.json config #4):
+    dense sets (Ibims/DIODE/Sintel/TUM) through the metric suite, DIW
+    through human-pair WHDR (eval/diw.py documents the conventions)."""
+    from pldepth_torch.data.datasets import get_dataset
+    from pldepth_torch.eval.evaluator import Evaluator
+
+    roots = [(name, getattr(args, f"{name.lower()}_root"))
+             for name in ("IBIMS", "DIODE", "SINTEL", "TUM")]
+    if not any(root for _, root in roots) and not args.diw_root:
+        _parser().error("zeroshot: provide at least one dataset root")
+    trainer, state = _loaded_trainer(args)
+    datasets = [get_dataset(name, root=root, target_size=args.input_size)
+                for name, root in roots if root]
+    out = {}
+    if datasets:
+        out = Evaluator(trainer, state).zero_shot_suite(datasets, limit=args.limit)
+    if args.diw_root:
+        from pldepth_torch.data.diw import load_diw
+        from pldepth_torch.eval.diw import evaluate_diw
+
+        items = load_diw(args.diw_root)
+        if args.limit:
+            items = items[: args.limit]
+        out["diw"] = evaluate_diw(trainer, state, items, args.input_size)
+    return out
 
 
 def predict(args: argparse.Namespace) -> dict:
@@ -303,7 +383,6 @@ def train(args: argparse.Namespace) -> dict:
 
     cfg = _make_config(vars(args))
     for name, on, item in (("--pack_cache", args.pack_cache, "item 7"),
-                           ("--parity_report", cfg.parity_report, "item 8"),
                            ("--profile", cfg.profile, "item 12")):
         if on:
             raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md queue 1 {item}")
@@ -367,16 +446,65 @@ def train(args: argparse.Namespace) -> dict:
     weights_path = os.path.join(logger.dir, "weights.npz")
     save_weights_npz(weights_path, state)
     print(f"weights saved to {weights_path}", flush=True)
-    log.warning("post-train evaluation is not ported yet: ROADMAP.md queue 1 item 8")
+    _post_train_eval(cfg, trainer, state, val_ds, logger)
     logger.close()
     return {**out, "weights": weights_path}
+
+
+def _post_train_eval(cfg, trainer, state, val_ds, logger) -> None:
+    """Ordinal error and NDCG@200 on up to 250 val images, an example image
+    (reference PLDepth.py:184-209), and with ``--parity_report`` the full
+    report and the verdict of docs/PARITY.md in ``parity_report.json``."""
+    import numpy as np
+
+    from pldepth_torch.eval.evaluator import Evaluator
+
+    evaluator = Evaluator(trainer, state)
+    limit = min(250, len(val_ds)) if len(val_ds) else None
+    if limit:
+        err = evaluator.calc_err(val_ds, limit=limit)
+        ndcg = evaluator.dcg_metric(val_ds, limit=limit)
+        logger.set_summary(test_error=err, ndcg_200=ndcg)
+        print(json.dumps({"test_error": err, "ndcg_200": ndcg}), flush=True)
+        ex = val_ds[min(10, len(val_ds) - 1)]
+        pred = np.asarray(trainer.jit_predict()(state, np.asarray(ex["image"])[None]))[0]
+        logger.log_images({"ex_img": ex["image"], "ex_gt": ex["gt"], "ex_pred": pred})
+    if not (cfg.parity_report and len(val_ds)):
+        return
+    report = evaluator.full_report(val_ds, limit=limit)
+    report["config"] = {
+        "model_name": cfg.model_name, "input_size": cfg.input_size,
+        "ranking_size": cfg.ranking_size, "dataset": cfg.dataset,
+        "ds_size": cfg.ds_size, "epochs": cfg.epochs,
+        "sampling_type": cfg.sampling_type,
+    }
+    if cfg.parity_target_whdr >= 0:
+        report["parity"] = {
+            "target_whdr": cfg.parity_target_whdr,
+            "budget": cfg.parity_budget,
+            "pass": bool(report["whdr_tau_0.03"] <= cfg.parity_target_whdr + cfg.parity_budget),
+        }
+    path = os.path.join(logger.dir, "parity_report.json")
+    with open(path, "w") as f:
+        json.dump(report, f, indent=2)
+    print(json.dumps({"parity_report": path,
+                      **{k: v for k, v in report.items() if not isinstance(v, dict)}}),
+          flush=True)
+    if "parity" in report:
+        print(f"PARITY {'PASS' if report['parity']['pass'] else 'FAIL'}: "
+              f"WHDR {report['whdr_tau_0.03']:.4f} vs target "
+              f"{cfg.parity_target_whdr:.4f} + {cfg.parity_budget:.3f}", flush=True)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
     logging.basicConfig(level=os.environ.get("PLDEPTH_LOG", "INFO"),
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    if args.command == "predict":
+    if args.command == "eval":
+        print(json.dumps(eval_cmd(args), indent=2))
+    elif args.command == "zeroshot":
+        print(json.dumps(zeroshot(args), indent=2))
+    elif args.command == "predict":
         print(json.dumps(predict(args)))
     elif args.command == "serve":
         print(json.dumps(serve(args)))

@@ -1,8 +1,14 @@
-"""Datasets (``pldepth_tpu/data/datasets.py``): HR-WSI training data and
-the synthetic set. Every dataset yields ``{"image": (H, W, 3) f32 [0,1],
-"gt": (H, W), "mask": (H, W)}`` at a fixed target size. The zero-shot
-evaluation sets come with the eval slice (ROADMAP.md queue 1 item 8), the
-structured ``scenes`` set with the data path (item 7).
+"""Datasets (``pldepth_tpu/data/datasets.py``): HR-WSI training data, the
+zero-shot evaluation sets and the synthetic set. Every dataset yields
+``{"image": (H, W, 3) f32 [0,1], "gt": (H, W), "mask": (H, W)}`` at a fixed
+target size. The structured ``scenes`` set comes with the data path
+(ROADMAP.md queue 1 item 7).
+
+Ibims/DIODE/Sintel/TUM are test-only (mask = all ones) and carry
+``asc_depth_order=True`` -- lower values are closer (reference
+pl_hourglass.py:22-31; Sintel depth_viz PNGs are scaled x255, sintel.py:31).
+Their loaders take no ``size`` or ``seed``, as in the JAX package, so
+``cli train --dataset IBIMS`` fails with TypeError in both.
 
 The synthetic fields use the JAX package's numpy streams; the port resizes
 on TF's bilinear grid where the JAX package uses cv2 (data/io.py), so the
@@ -97,6 +103,50 @@ def load_hrwsi(root: str, split: str = "train", target_size: int = 224,
     return DepthDataset(name="hrwsi", size=len(files), loader=load)
 
 
+def _eval_ds(name, items, target_size, read_fn, asc=True, gt_scale=1.0):
+    def load(i):
+        image, gt = read_fn(items[i])
+        ts = (target_size, target_size)
+        image = dio.resize_bilinear(np.atleast_3d(image), ts)
+        if image.shape[-1] == 1:
+            image = np.repeat(image, 3, axis=-1)
+        gt = dio.resize_bilinear(np.asarray(gt, np.float32)[..., None], ts)[..., 0]
+        return {"image": image, "gt": gt * gt_scale, "mask": np.ones(ts, np.float32)}
+
+    return DepthDataset(name=name, size=len(items), loader=load, asc_depth_order=asc)
+
+
+def load_ibims(root: str, target_size: int = 224) -> DepthDataset:
+    items = sorted(glob.glob(os.path.join(root, "*.mat")))
+    return _eval_ds("ibims", items, target_size, dio.read_mat_ibims)
+
+
+def load_tum(root: str, target_size: int = 224) -> DepthDataset:
+    items = sorted(glob.glob(os.path.join(root, "*.h5")))
+    return _eval_ds("tum", items, target_size, dio.read_h5_tum)
+
+
+def load_diode(root: str, target_size: int = 224) -> DepthDataset:
+    imgs = sorted(glob.glob(os.path.join(root, "*", "*", "*", "*.png")))
+
+    def read(img_path):
+        return (dio.read_image(img_path, 3),
+                dio.read_npy_depth(img_path.replace(".png", "_depth.npy")))
+
+    return _eval_ds("diode", imgs, target_size, read)
+
+
+def load_sintel(root: str, target_size: int = 224) -> DepthDataset:
+    imgs = sorted(glob.glob(os.path.join(root, "images", "*", "*.png")))
+
+    def read(img_path):
+        gt_path = img_path.replace(f"{os.sep}images{os.sep}", f"{os.sep}depth_viz{os.sep}")
+        # depth_viz PNGs store scaled depth; x255 restores it (sintel.py:31)
+        return dio.read_image(img_path, 3), dio.read_image(gt_path, 1)[..., 0] * 255.0
+
+    return _eval_ds("sintel", imgs, target_size, read)
+
+
 def _synthetic(root="", target_size=224, size=None, split="train", seed=0, shuffle=False):
     return SyntheticDepthDataset(size or 64, target_size, seed)
 
@@ -104,9 +154,12 @@ def _synthetic(root="", target_size=224, size=None, split="train", seed=0, shuff
 DATASETS: Dict[str, Callable[..., DepthDataset]] = {
     "synthetic": _synthetic,
     "HR-WSI": load_hrwsi,
+    "IBIMS": load_ibims,
+    "TUM": load_tum,
+    "DIODE": load_diode,
+    "SINTEL": load_sintel,
 }
-_LATER = {"scenes": "item 7", "ibims": "item 8", "tum": "item 8", "diode": "item 8",
-          "sintel": "item 8"}
+_LATER = {"scenes": "item 7"}
 
 
 def get_dataset(name: str, **kwargs) -> DepthDataset:

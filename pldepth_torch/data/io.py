@@ -1,8 +1,9 @@
-"""Host-side image decode and resize (``pldepth_tpu/data/io.py``).
+"""Host-side decode and resize (``pldepth_tpu/data/io.py``): jpg/png
+(HR-WSI, Sintel), .npy depth (DIODE), .mat (Ibims) and .h5 (TUM).
 
-PIL is imported inside :func:`read_image` only, so the rest of the port
-imports on a host without it. The host resize runs ``F.interpolate`` on the
-CPU on TF's half-pixel grid (1.2e-7 from ``jax.image.resize``); the JAX
+PIL, scipy and h5py are imported inside the reader that needs them, so the
+rest of the port imports on a host without them. The host resize runs
+``F.interpolate`` on the CPU on TF's half-pixel grid (1.2e-7 from ``jax.image.resize``); the JAX
 package uses cv2 ``INTER_LINEAR``, the same grid with fixed-point
 coefficients. Measured gap between the two on [0,1] float32 images resized
 to 448x448: 5.8e-5 from 480x640, 1.4e-4 from 1080x1920, against an 8-bit
@@ -11,7 +12,7 @@ step of 3.9e-3 (tests/test_torch_resize.py holds it at 2e-4).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,3 +54,33 @@ def resize_nearest(arr: np.ndarray, size: Sequence[int]) -> np.ndarray:
     idx0 = np.minimum((np.arange(h) * (arr.shape[0] / h)).astype(int), arr.shape[0] - 1)
     idx1 = np.minimum((np.arange(w) * (arr.shape[1] / w)).astype(int), arr.shape[1] - 1)
     return np.asarray(arr)[np.ix_(idx0, idx1)].astype(np.float32)
+
+
+def read_npy_depth(path: str) -> np.ndarray:
+    return np.squeeze(np.load(path)).astype(np.float32)
+
+
+def read_mat_ibims(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """Ibims .mat: data struct with image at field 2, depth at field 3
+    (reference ibims.py:19-22)."""
+    from scipy import io as sio
+
+    raw = sio.loadmat(path)["data"]
+    image = np.asarray(raw[0][0][2], np.float32)
+    gt = np.asarray(raw[0][0][3], np.float32)
+    if image.max() > 1.5:
+        image = image / 255.0
+    return image, gt
+
+
+def read_h5_tum(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """TUM .h5: gt/img_1 image + gt/pp_depth pseudo-depth
+    (reference tum.py:27-31)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        image = np.asarray(f["gt"]["img_1"], np.float32)
+        gt = np.asarray(f["gt"]["pp_depth"], np.float32)
+    if image.max() > 1.5:
+        image = image / 255.0
+    return image, gt

@@ -1,5 +1,6 @@
 """Run logging (``pldepth_tpu/obs/logging.py``): JSONL and CSV under
-``<output_dir>/<run_name>/``, plus ``config.json``.
+``<output_dir>/<run_name>/``, plus ``config.json``, ``summary.json`` and
+example PNGs under ``examples/``.
 wandb, TensorBoard and mlflow come with a later slice (ROADMAP.md queue 1
 item 12) and raise NotImplementedError when asked for.
 """
@@ -8,9 +9,14 @@ from __future__ import annotations
 
 import csv
 import json
+import logging
 import os
 import time
 from typing import Any, Dict, Optional
+
+import numpy as np
+
+log = logging.getLogger(__name__)
 
 
 class MetricLogger:
@@ -28,6 +34,7 @@ class MetricLogger:
         self._csv_path = os.path.join(self.dir, "metrics.csv")
         self._csv_fields: Optional[list] = None
         self._csv_file = None
+        self.summary: Dict[str, Any] = {}
         if config:
             with open(os.path.join(self.dir, "config.json"), "w") as f:
                 json.dump(config, f, indent=2, default=str)
@@ -68,6 +75,36 @@ class MetricLogger:
                                        extrasaction="ignore")
         self._csv.writerow({k: rec.get(k) for k in self._csv_fields})
         self._csv_file.flush()
+
+    def set_summary(self, **kwargs):
+        """wandb.run.summary equivalent (PLDepth.py:190-193): ``summary.json``."""
+        self.summary.update(kwargs)
+        with open(os.path.join(self.dir, "summary.json"), "w") as f:
+            json.dump(self.summary, f, indent=2, default=float)
+
+    def log_images(self, images: Dict[str, Any]):
+        """Example-image logging (reference PLDepth.py:196-209: input / gt /
+        predicted depth at train end): PNGs under ``<run>/examples/``.
+        Values: (H, W) float maps, min-max scaled to u8, or (H, W, 3)
+        images in [0, 1], passed through. A PNG that cannot be written (no
+        PIL) is logged as a warning and skipped. The JAX package's
+        ``captions`` argument feeds its wandb sink, which comes with item 12."""
+        ex_dir = os.path.join(self.dir, "examples")
+        os.makedirs(ex_dir, exist_ok=True)
+        for name, arr in images.items():
+            a = np.squeeze(np.asarray(arr)).astype(np.float64)
+            if a.ndim == 3:  # RGB in [0,1] passes through
+                u8 = (a * 255.0).clip(0, 255).astype(np.uint8)
+            else:  # grayscale maps are min-max scaled
+                lo, hi = float(a.min()), float(a.max())
+                u8 = np.zeros_like(a, np.uint8) if hi - lo < 1e-12 else (
+                    (a - lo) * 255.0 / (hi - lo)).astype(np.uint8)
+            try:
+                from PIL import Image
+
+                Image.fromarray(u8).save(os.path.join(ex_dir, f"{name}.png"))
+            except (ImportError, OSError) as e:
+                log.warning("could not write example image %s: %s", name, e)
 
     def close(self):
         self._jsonl.close()

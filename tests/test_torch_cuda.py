@@ -559,3 +559,70 @@ def test_int8_serving_on_the_card_runs_k4_at_every_dense_site(cuda_device):
     rel = float((q - b).abs().max() / b.abs().max())
     r = float(np.corrcoef(q.cpu().numpy().ravel(), b.cpu().numpy().ravel())[0, 1])
     assert rel < 0.15 and r > 0.98, (rel, r)
+
+
+# -- evaluation: device metrics, the device report, nearest resize --------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("tau", [0.0, 0.03])
+@pytest.mark.parametrize("invert", [False, True])
+def test_device_metrics_on_the_card_equal_the_cpu(tau, invert, cuda_device):
+    from pldepth_torch.eval import device_metrics as D
+
+    rng = np.random.default_rng(0)
+    gt = rng.uniform(0.05, 1, (3, 4096)).astype(np.float32)
+    pred = (0.7 * gt + 0.3 * rng.uniform(size=gt.shape)).astype(np.float32)
+    gt[:, 0], gt[:, 1] = np.float32(1.03), np.float32(1.0)  # a pair on the band's edge
+    idx = np.stack([rng.choice(4096, 1000, replace=False) for _ in range(3)])
+    idx[:, 0], idx[:, 500] = 0, 1
+    cpu = [torch.from_numpy(a) for a in (pred, gt, idx[:, :500], idx[:, 500:])]
+    dev = [a.to(cuda_device) for a in cpu]
+    got = D.pairwise_disagreement(*dev, tau, invert)
+    assert got.is_cuda and got.cpu().tolist() == D.pairwise_disagreement(*cpu, tau, invert).tolist()
+    nd = D.ndcg_sampled(dev[0], dev[1], dev[2]).cpu()
+    torch.testing.assert_close(nd, D.ndcg_sampled(cpu[0], cpu[1], cpu[2]), rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_full_report_device_keeps_the_maps_on_the_card(cuda_device, monkeypatch):
+    """The device report reads trainer.predict (never the host-copying
+    serving callable) and brings three scalars per image to the host."""
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.eval import Evaluator
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(ExperimentConfig(model_name="ff_smoke", input_size=64))
+    ev = Evaluator(trainer, trainer.init_state(), eval_batch_size=4)
+    ds = SyntheticDepthDataset(6, 64, seed=3)  # 6: the last batch is padded
+    host = ev.full_report(ds)
+
+    def no_serving(*a, **k):
+        raise AssertionError("the device report used the host-copying serving callable")
+
+    ev._predict = no_serving
+    moved = []
+    real_cpu = torch.Tensor.cpu
+
+    def spy_cpu(t, *a, **k):
+        if t.is_cuda:
+            moved.append(t.numel())
+        return real_cpu(t, *a, **k)
+
+    monkeypatch.setattr(torch.Tensor, "cpu", spy_cpu)
+    dev = ev.full_report_device(ds)
+    monkeypatch.undo()
+    assert moved == [3 * 4, 3 * 4]  # one (3, batch) copy per batch, no map
+    for key, tol in (("test_error", 0.03), ("whdr_tau_0.03", 0.03), ("ndcg_200", 0.05)):
+        assert abs(dev[key] - host[key]) <= tol, (key, dev, host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,size,channel_last", [
+    ((7, 5), (3, 4), True), ((9, 6, 3), (20, 13), True), ((2, 9, 6, 3), (5, 7), True),
+    ((3, 9, 6), (19, 14), False)])
+def test_resize_nearest_on_the_card_equals_the_cpu(shape, size, channel_last, cuda_device):
+    from pldepth_torch.ops.resize import resize_nearest
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=shape).astype(np.float32))
+    got = resize_nearest(x.to(cuda_device), size, channel_last=channel_last)
+    assert got.is_cuda and torch.equal(got.cpu(), resize_nearest(x, size, channel_last=channel_last))

@@ -1,6 +1,7 @@
 """The port stands alone and never swaps devices: no module of
 ``pldepth_torch`` (nor ``chip_smoke.py``) imports jax, flax or
-pldepth_tpu; entry points raise without a card unless the CPU is asked
+pldepth_tpu, and none imports cv2, PIL, scipy or h5py when it is imported
+(the card's machine has scipy only; the readers import them); entry points raise without a card unless the CPU is asked
 for; the K2 wrapper has no try/except path; chip_smoke.py fails without a
 card and when run away from the repository."""
 
@@ -33,6 +34,30 @@ def _imports(path):
 def test_no_jax_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+LAZY = {"cv2", "PIL", "scipy", "h5py"}
+
+
+def _import_time_imports(path):
+    """Modules imported when ``path`` is imported: its body, outside any
+    function or class."""
+    stack = list(ast.parse(open(path).read(), filename=path).body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+        stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
+def test_optional_libraries_are_imported_lazily(path):
+    bad = [m for m in _import_time_imports(path) if m.split(".")[0] in LAZY]
+    assert not bad, f"{path} imports {bad} when it is imported"
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

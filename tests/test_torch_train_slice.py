@@ -251,8 +251,8 @@ def test_config_json_precedence_matches_jax():
 @pytest.mark.parametrize("flags,item", [
     (["--qres", "int8"], "item 11"), (["--sparse_tail", "true"], "item 11"),
     (["--uint8_wire", "true"], "item 7"), (["--pack_cache", "x.pack"], "item 7"),
-    (["--parity_report", "true"], "item 8"), (["--use_wandb", "true"], "item 12"),
-    (["--qenc", "int8"], "item 11"), (["--dataset", "IBIMS"], "item 8"),
+    (["--profile", "true"], "item 12"), (["--use_wandb", "true"], "item 12"),
+    (["--qenc", "int8"], "item 11"), (["--dataset", "scenes"], "item 7"),
 ])
 def test_cli_train_unported_options_name_their_item(flags, item, tmp_path):
     from pldepth_torch.cli import main
@@ -260,6 +260,20 @@ def test_cli_train_unported_options_name_their_item(flags, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         main(["train", "--device", "cpu", "--output_dir", str(tmp_path), *flags])
     assert not any(tmp_path.iterdir())  # nothing written
+
+
+@pytest.mark.parametrize("dataset", ["IBIMS", "TUM", "DIODE", "SINTEL"])
+def test_cli_train_on_a_zero_shot_set_raises_type_error(dataset, tmp_path):
+    """The zero-shot loaders take no size or seed, so training on one fails
+    with TypeError in both packages' train command."""
+    from pldepth_torch.cli import main
+    from pldepth_tpu.cli import _load_data as j_load_data
+
+    with pytest.raises(TypeError, match="size"):
+        main(["train", "--device", "cpu", "--output_dir", str(tmp_path), "--dataset", dataset])
+    assert not any(tmp_path.iterdir())  # nothing written
+    with pytest.raises(TypeError, match="size"):
+        j_load_data(JConfig(dataset=dataset))
 
 
 def _cli(*args):
