@@ -112,7 +112,25 @@ Phases (any failure exits non-zero):
      both reports (CUDA events) and the share of the host path's numpy
      draws; cli zeroshot on 8 seeded Ibims-layout files at 480x640 (scored
      in ascending order) and, where PIL is present, DIODE, Sintel and DIW
-     trees at their datasets' sizes.
+     trees at their datasets' sizes;
+ 14. the training data path: 512 seeded scenes at 448^2 (made by spawned
+     workers), split as cli train splits them; the training split packed
+     (pack_dataset) and held on the card (build_resident_store from the
+     PackedDataset); gates: the native reader's in-order batches equal the
+     pack's rows (u8 and f32 wire), the store's decode on the card equals
+     the CPU decode, resident_chain(4) against four resident_step calls
+     (loss rel <= 1e-2, update rel <= 5e-2; a second run of the single
+     steps gives the card's own spread); then configs/ff_effnet_448.json at
+     batch 32 through Trainer.fit for 20 steps (+ 2 val batches) on each of
+     five feeds (BatchIterator f32, BatchIterator uint8_wire, the native
+     packed reader, the resident store with chains of 1 and of 4): finite
+     losses, K1 forward == steps + val batches and backward == steps, the
+     profiler's HtoD bytes a step at least the batch's on the streaming
+     feeds and under 1 MB on the resident ones; numbers per feed: train
+     img/s through fit, ms a step (CUDA events), idle share, HtoD MB a
+     step, peak memory; pack and store seconds and sizes; then cli train
+     --data_resident true --resident_chain_steps 2 on 80 scenes (K1
+     launches, the store line, weights.npz).
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -2354,6 +2372,328 @@ def eval_phase(smi: str) -> dict:
     return rec
 
 
+# phase 14: scenes at 448^2, split as cli train splits them; each feed trains
+# DATA_EPOCHS x DATA_STEPS steps through Trainer.fit (one val batch an epoch)
+DATA_N, DATA_STEPS, DATA_EPOCHS, DATA_CLI_N = 512, 10, 2, 80
+DATA_CHAIN = 4  # resident_chain_steps of the chained resident feed
+HTOD_RESIDENT_MB = 1.0  # gate: batch data a resident step may copy host-to-device
+# resident_chain(4) against four resident_step calls: K1's backward adds its
+# gradient map with atomics, so the card is not bit-deterministic, and
+# AMSGrad's first steps move every trainable by about +-lr whatever its
+# gradient's size, so a gradient whose sign sits at that noise floor flips
+# its update: two runs of the same four single steps differ by loss rel
+# 6.9e-4 and update rel 6.7e-2 (||p - p'|| / ||p - p0||) on the H100. A chain
+# that drew other batches or skipped a step differs by O(1e-1) / O(1).
+CHAIN_LOSS_RTOL, CHAIN_UPDATE_RTOL = 1e-2, 0.25
+
+
+def scene_sample(index: int, size: int, seed: int):
+    """One ``scenes`` sample (a spawned worker's job in phase 14)."""
+    import cv2
+
+    from pldepth_torch.data.scenes import generate_scene
+
+    cv2.setNumThreads(1)  # the workers run side by side
+    s = generate_scene(index, size, seed)
+    return {k: s[k] for k in ("image", "gt", "mask")}
+
+
+def scenes_cached(n: int, size: int, seed: int):
+    """``get_dataset("scenes", size=n, seed=seed, target_size=size)``, every
+    sample made once in parallel (spawned workers: this process has CUDA
+    and threads) and kept in host memory; two samples checked against the
+    dataset's own loader."""
+    import dataclasses
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    import numpy as np
+
+    from pldepth_torch.data.datasets import get_dataset
+
+    ds = get_dataset("scenes", size=n, seed=seed, target_size=size)
+    workers = max(1, min(8, (os.cpu_count() or 1)))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(workers, mp_context=get_context("spawn")) as pool:
+        results = pool.map(scene_sample, range(n), [size] * n, [seed] * n, chunksize=8)
+        items = [next(results)]
+        first_s = time.perf_counter() - t0
+        items += list(results)
+    log(f"scenes: the first of {n} back from a worker after {first_s:.1f} s, all after "
+        f"{time.perf_counter() - t0:.1f} s")
+    for i in (0, n - 1):
+        if any(not np.array_equal(items[i][k], v) for k, v in ds[i].items()):
+            fail(f"scene {i} made by a worker differs from the dataset's own")
+    return dataclasses.replace(ds, loader=items.__getitem__), workers
+
+
+def feed_window(fn, n: int, steps_per_call: int, unprofiled_ms: float, spin: int = SPIN_KERNELS):
+    """One profiled window of ``n`` calls of ``fn`` (after one call outside
+    it, opened by ``spin`` spin kernels as kernel_window's are): device busy
+    ms a step (kernels and copies), the idle share against the unprofiled
+    ms a step, the top kernels, and the host-to-device bytes: the memcpy
+    HtoD events of the profiler's trace, MB and copies a step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(spin):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    steps = n * steps_per_call
+    by_kernel = {e.key: e.self_device_time_total / 1e3 / steps for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                 and "spin_kernel" not in e.key}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    blind = [e for e in copies if "bytes" not in e.get("args", {})]
+    if blind:
+        fail(f"memcpy HtoD events without a byte count in the trace: {blind[:2]}")
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    return {"device_busy_ms": busy, "idle_share": 1 - busy / unprofiled_ms,
+            "top_kernels": [{"name": k, "ms_per_step": ms} for k, ms in top],
+            "htod_mb": sum(e["args"]["bytes"] for e in copies) / 1e6 / steps,
+            "htod_copies": len(copies) / steps,
+            "htod_events": [(e["name"], e["args"]["bytes"]) for e in copies]}
+
+
+def data_path_phase(smi: str, device="cuda", size=SIZE, batch=BATCH_TRAIN, n=DATA_N) -> dict:
+    """Phase 14: the training data path. BASELINE config #1 (bf16, batch 32)
+    on ``n`` scenes at 448^2 through Trainer.fit on each of five feeds
+    (BatchIterator f32, BatchIterator uint8_wire, the native packed reader,
+    the resident store with chains of 1 and of DATA_CHAIN steps), their
+    gates and numbers, then cli train --data_resident true end to end.
+    ``device="cpu"`` rehearses the control flow (no K1 launch or HtoD gate,
+    the timing helpers stubbed by the caller)."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.data.packed import NativePackedIterator, PackedDataset, pack_dataset
+    from pldepth_torch.data.pipeline import (
+        BatchIterator,
+        pregenerate_val_rankings,
+        train_val_split,
+        val_batches,
+    )
+    from pldepth_torch.data.resident import build_resident_store
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.train import Trainer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cuda = device == "cuda"
+    cfg = load_config(EFFNET_CONFIG).replace(
+        input_size=size, batch_size=batch, dataset="scenes", ds_size=n, epochs=DATA_EPOCHS)
+    rec = {"n": n, "size": size, "batch": batch, "steps": DATA_STEPS * DATA_EPOCHS}
+    t0 = time.perf_counter()
+    ds, rec["scene_workers"] = scenes_cached(n, size, cfg.seed)
+    rec["scenes_s"] = time.perf_counter() - t0
+    train_ds, val_ds = train_val_split(ds, cfg.val_split_denom)
+    rec["train_n"], rec["val_n"] = len(train_ds), len(val_ds)
+    log(f"scenes: {n} at {size}^2 in {rec['scenes_s']:.1f} s on {rec['scene_workers']} "
+        f"workers; train {len(train_ds)}, val {len(val_ds)}")
+    val_rankings = pregenerate_val_rankings(
+        val_ds, sampler_name="thresholded", rankings_per_image=cfg.val_rpi,
+        ranking_size=cfg.ranking_size, threshold=cfg.equality_threshold, seed=cfg.seed,
+        device=device)
+    n_val = len(val_ds) // batch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pack = os.path.join(tmp, "train.pldpack")
+        t0 = time.perf_counter()
+        pack_dataset(train_ds, pack)
+        rec["pack_s"], rec["pack_gb"] = time.perf_counter() - t0, os.path.getsize(pack) / 1e9
+        rows = PackedDataset(pack)
+        t0 = time.perf_counter()
+        store = build_resident_store(rows, device)
+        if cuda:
+            torch.cuda.synchronize()
+        rec["store_s"], rec["store_gb"] = time.perf_counter() - t0, store.nbytes / 1e9
+        log(f"pack: {len(train_ds)} samples -> {rec['pack_gb']:.3f} GB in {rec['pack_s']:.2f} s; "
+            f"resident store {rec['store_gb']:.3f} GB on the card in {rec['store_s']:.2f} s")
+
+        # gates on the readers and the store -------------------------------
+        for wire in (True, False):
+            it = NativePackedIterator(pack, batch, shuffle=False, loop=False, uint8_wire=wire)
+            for b in range(2):
+                got = next(it)
+                for j in range(batch):
+                    row = rows[b * batch + j]
+                    img = np.round(row["image"] * 255.0).astype(np.uint8)
+                    want = {"image": img if wire else img * np.float32(1 / 255), "gt": row["gt"],
+                            "mask": row["mask"].astype(np.uint8 if wire else np.float32)}
+                    bad = [k for k, v in want.items() if not np.array_equal(got[k][j], v)]
+                    if bad:
+                        fail(f"native reader batch {b} row {j} ({'u8' if wire else 'f32'} "
+                             f"wire): {bad} differ from the pack's rows")
+            it.close()
+        tr1 = Trainer(cfg, DATA_STEPS, device=device)
+        idx = torch.tensor([0, 5, len(rows) - 1, 5], device=device)
+        drawn = tr1.resident_batch(tr1.init_state(), store.arrays, idx)
+        cpu = {k: v.cpu() for k, v in store.arrays.items()}
+        want = tr1.resident_batch(tr1.init_state(), cpu, idx.cpu())
+        host_gt = (cpu["gt"].numpy().view(np.uint16)[idx.cpu().numpy()].astype(np.float32)
+                   * np.float32(store.gt_scale))
+        if any(not torch.equal(drawn[k].cpu(), want[k]) for k in want) or not np.array_equal(
+                want["gt"].numpy(), host_gt):
+            fail("the store's decode on the card differs from the CPU decode")
+        rec["decode_equal"] = True
+
+        # chain against single steps ----------------------------------------
+        trc = Trainer(cfg.replace(resident_chain_steps=DATA_CHAIN), DATA_STEPS, device=device)
+        runs = []
+        for how in ("chain", "singles", "singles"):
+            st = trc.init_state()
+            p0 = torch.cat([p.detach().float().flatten() for p in st.model.parameters()
+                            if p.requires_grad])
+            if how == "chain":
+                st, m = trc.resident_chain(DATA_CHAIN)(st, store.arrays)
+                losses = m.loss.float().cpu()
+            else:
+                ls = []
+                for _ in range(DATA_CHAIN):
+                    st, m = trc.resident_step(st, store.arrays)
+                    ls.append(m.loss)
+                losses = torch.stack(ls).float().cpu()
+            p1 = torch.cat([p.detach().float().flatten() for p in st.model.parameters()
+                            if p.requires_grad])
+            runs.append((losses, p0, p1))
+        (la, p0, pa), (lb, _, pb), (lc, _, pc) = runs
+        upd = float((pa - p0).norm())
+        loss_rel = float(((la - lb).abs() / lb.abs()).max())
+        upd_rel = float((pa - pb).norm()) / upd
+        spread = {"loss_rel": float(((lc - lb).abs() / lb.abs()).max()),
+                  "update_rel": float((pc - pb).norm()) / upd}
+        rec["chain_vs_singles"] = {"loss_rel": loss_rel, "update_rel": upd_rel,
+                                   "singles_vs_singles": spread, "losses": la.tolist()}
+        log(f"resident_chain({DATA_CHAIN}) vs {DATA_CHAIN} resident_step calls: loss rel "
+            f"{loss_rel:.2e} (tol {CHAIN_LOSS_RTOL:g}), update rel {upd_rel:.2e} (tol "
+            f"{CHAIN_UPDATE_RTOL:g}); two runs of the single steps: {spread}")
+        if not (loss_rel <= CHAIN_LOSS_RTOL and upd_rel <= CHAIN_UPDATE_RTOL):
+            fail(f"resident_chain({DATA_CHAIN}) differs from single steps: loss rel "
+                 f"{loss_rel:.3e}, update rel {upd_rel:.3e}")
+        del runs
+
+        # the five feeds through fit --------------------------------------------
+        # (trainer, host iterator factory, resident store, batch bytes a pixel
+        # on the wire: f32 image + gt + mask 20, uint8 image and mask 8)
+        feeds = {
+            "batch_iterator_f32": (tr1, lambda: BatchIterator(
+                train_ds, batch, seed=cfg.seed, prefetch=cfg.prefetch_depth), None, 20),
+            "batch_iterator_uint8": (tr1, lambda: BatchIterator(
+                train_ds, batch, seed=cfg.seed, prefetch=cfg.prefetch_depth, uint8_wire=True),
+                None, 8),
+            "native_packed": (tr1, lambda: NativePackedIterator(
+                pack, batch, seed=cfg.seed, ring=cfg.prefetch_depth), None, 8),
+            "resident": (tr1, None, store, 0),
+            f"resident_chain{DATA_CHAIN}": (trc, None, store, 0),
+        }
+        rec["feeds"], rec["k1_launches"] = {}, {"ranking_loss_fwd": 0, "ranking_loss_bwd": 0}
+        for name, (tr, make_iter, res, wire_bytes) in feeds.items():
+            it = make_iter() if make_iter else None
+            state = tr.init_state()
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            k1.ranking_loss_fwd.launches = k1.ranking_loss_bwd.launches = 0
+            t0 = time.perf_counter()
+            state, hist = tr.fit(state, it, val_iter_factory=(lambda: val_batches(
+                val_ds, val_rankings, batch)) if n_val else None, resident_store=res)
+            fit_s = time.perf_counter() - t0
+            launches = {"ranking_loss_fwd": k1.ranking_loss_fwd.launches,
+                        "ranking_loss_bwd": k1.ranking_loss_bwd.launches}
+            peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+            steps = DATA_STEPS * DATA_EPOCHS
+            losses = hist["loss"] + hist["val_loss"]
+            if state.step != steps or not np.all(np.isfinite(losses)):
+                fail(f"{name}: fit did not run {steps} finite steps: {hist}")
+            want_fwd = steps + DATA_EPOCHS * n_val
+            if cuda and launches != {"ranking_loss_fwd": want_fwd, "ranking_loss_bwd": steps}:
+                fail(f"{name}: K1 launches {launches}, expected forward {want_fwd} (steps + "
+                     f"val batches) and backward {steps}")
+            for k, v in launches.items():
+                rec["k1_launches"][k] += v
+
+            box = [state]
+            chain = DATA_CHAIN if tr is trc else 1
+            if res is not None:
+                def unit(tr=tr, chain=chain):
+                    box[0], _ = tr.resident_chain(chain)(box[0], store.arrays)
+            else:
+                def unit(tr=tr, it=it):
+                    box[0], _ = tr.train_step(box[0], next(it))
+            ms = cuda_ms(unit, reps=max(2, 6 // chain), warmup=1) / chain
+            expect = batch * size * size * wire_bytes
+            seen = []
+            for attempt in range(3):  # a window that lost copies is taken again
+                win = feed_window(unit, max(1, 3 // chain), chain, ms,
+                                  SPIN_KERNELS << (2 * attempt))
+                mb, copies = win["htod_mb"], win["htod_copies"]
+                seen.append(round(mb, 3))
+                if mb * 1e6 >= expect:
+                    break
+                log(f"{name}: a window of HtoD copies short of the batch: {win['htod_events']}")
+            if it is not None:
+                it.close()
+            if cuda and mb * 1e6 < expect:
+                fail(f"{name}: the profiler saw {seen} MB host-to-device a step in its windows, "
+                     f"less than the batch's {expect / 1e6:.2f} MB: the measure is blind")
+            if cuda and res is not None and mb >= HTOD_RESIDENT_MB:
+                fail(f"{name}: {mb:.3f} MB host-to-device a step (gate < {HTOD_RESIDENT_MB} MB)")
+            feed = {"fit_s": fit_s, "fit_img_per_s_epochs": hist["ips"],
+                    "fit_img_per_s": hist["ips"][-1], "step_ms": ms,
+                    "idle_share": win["idle_share"], "device_busy_ms_per_step":
+                    win["device_busy_ms"], "htod_mb_per_step": mb,
+                    "htod_copies_per_step": copies, "batch_mb": expect / 1e6,
+                    "peak_mem_gb": peak, "launches": launches, "history": hist,
+                    "top_kernels": win["top_kernels"]}
+            rec["feeds"][name] = feed
+            log(f"feed {name}: fit {feed['fit_img_per_s']:.1f} img/s (epochs "
+                f"{[round(x, 1) for x in hist['ips']]}), {ms:.2f} ms a step (1/step "
+                f"{1000 * batch / ms:.1f} img/s), device busy {win['device_busy_ms']:.2f} ms "
+                f"a step, idle {feed['idle_share']:.3f}, HtoD "
+                f"{mb:.3f} MB a step in {copies:.1f} copies, peak {peak} GB, K1 "
+                f"{launches} [{smi}]")
+            del state, box
+        del store, feeds, unit
+        torch.cuda.empty_cache()
+
+    # cli train from a resident store, end to end -------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        k1.ranking_loss_fwd.launches = k1.ranking_loss_bwd.launches = 0
+        lines, rec["cli_s"] = run_cli([
+            "train", "--config_json", os.path.join(here, "configs", EFFNET_CONFIG),
+            "--dataset", "scenes", "--ds_size", str(DATA_CLI_N), "--batch_size", "8",
+            "--input_size", str(size), "--epochs", "1", "--data_resident", "true",
+            "--resident_chain_steps", "2", "--output_dir", tmp, "--run_name", "resident",
+            "--device", device])
+        n_train = DATA_CLI_N - DATA_CLI_N // cfg.val_split_denom
+        steps = n_train // 8
+        cli_launches = (k1.ranking_loss_fwd.launches, k1.ranking_loss_bwd.launches)
+        said = [line for line in lines if line.startswith("resident store: ")]
+        if not said or not said[0].startswith(f"resident store: {n_train} samples"):
+            fail(f"cli train --data_resident: no resident store line for {n_train} samples")
+        if cuda and cli_launches != (steps, steps):
+            fail(f"cli train --data_resident: K1 launches {cli_launches}, expected {steps} each")
+        if not os.path.exists(os.path.join(tmp, "resident", "weights.npz")):
+            fail("cli train --data_resident wrote no weights.npz")
+        res = json.loads(next(line for line in lines if line.startswith('{"run_dir"')))
+        if not np.all(np.isfinite(res["loss"])):
+            fail(f"cli train --data_resident: non-finite loss {res['loss']}")
+        rec["cli"] = {"store_line": said[0], "k1_launches": cli_launches, "loss": res["loss"]}
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every number here as JSON")
@@ -2589,6 +2929,11 @@ def main() -> int:
 
     mark("13")
 
+    # 14. the training data path: five feeds through fit, cli train --data_resident ---------
+    record["data_path"] = rec_d = data_path_phase(smi)
+
+    mark("14")
+
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",
         "source": "pldepth_torch/csrc/fused_mbconv.cu",
@@ -2606,7 +2951,9 @@ def main() -> int:
     } for part, line in (("expand_dw", 62), ("project", 159))] + [{
         "name": name, "route": "cuda", "source": "pldepth_torch/csrc/listmle.cu",
         "replaces": replaces,
-        "launches": rec_t["launches"][name] + rec_rt["launches"][name], "max_abs_err": err,
+        "launches": (rec_t["launches"][name] + rec_rt["launches"][name]
+                     + rec_d["k1_launches"][name]),
+        "max_abs_err": err,
         **{key: k1t["fused"][K1_MAIN][name][key] for key in ("ms", "plain_ms", "bound_ms",
                                                               "bound_by")},
         "library_ms": None,  # no single PyTorch call computes the fused loss

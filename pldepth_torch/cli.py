@@ -4,9 +4,12 @@ The ``train``, ``eval``, ``zeroshot``, ``predict`` and ``serve`` commands of
 ``pldepth_tpu/cli.py`` with the same flag names, defaults and
 ``true``/``false`` booleans, written with argparse, plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain versions of the kernels).
-``train`` runs ``Trainer.fit``, saves ``weights.npz`` and evaluates the
-trained weights on up to 250 validation images (``summary.json``, an
-example image, and with ``--parity_report true`` the verdict of
+``train`` runs ``Trainer.fit`` on one of three feeds (``--data_resident``:
+the set held on the card; ``--pack_cache``: a packed file through the
+native reader; else ``BatchIterator``, optionally ``--uint8_wire``), saves
+``weights.npz`` and evaluates the trained weights on up to 250 validation
+images (``summary.json``, an example image, and with ``--parity_report
+true`` the verdict of
 docs/PARITY.md in ``parity_report.json``). ``eval`` is the test-set report,
 ``zeroshot`` the cross-dataset suite (Ibims, DIODE, Sintel, TUM, DIW).
 ``predict`` and ``serve`` with their default flags serve the int8 graph of
@@ -382,10 +385,8 @@ def train(args: argparse.Namespace) -> dict:
     from pldepth_torch.train.trainer import Trainer
 
     cfg = _make_config(vars(args))
-    for name, on, item in (("--pack_cache", args.pack_cache, "item 7"),
-                           ("--profile", cfg.profile, "item 12")):
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet: ROADMAP.md queue 1 {item}")
+    if cfg.profile:
+        raise NotImplementedError("--profile is not ported yet: ROADMAP.md queue 1 item 12")
     if args.resume and not args.run_name:
         raise SystemExit("--resume needs a fixed --run_name")
     run_name = args.run_name or time.strftime("%d%m%y-%H%M%S") + f"_s{cfg.sampling_type}"
@@ -403,8 +404,26 @@ def train(args: argparse.Namespace) -> dict:
     if args.resume and auto_ckpt.latest_step() is not None:
         state = auto_ckpt.restore(state)
         print(f"resumed from step {state.step}", flush=True)
-    train_iter = BatchIterator(train_ds, cfg.batch_size, seed=cfg.seed, start_step=state.step,
-                               prefetch=cfg.prefetch_depth)
+    # the feed, in the JAX command's precedence: resident store, pack, stream
+    resident_store = train_iter = None
+    if cfg.data_resident:
+        from pldepth_torch.data.resident import build_resident_store
+
+        resident_store = build_resident_store(train_ds, trainer.device)
+        print(f"resident store: {resident_store.n} samples, "
+              f"{resident_store.nbytes / 1e9:.2f} GB in HBM", flush=True)
+    elif args.pack_cache:
+        from pldepth_torch.data.packed import NativePackedIterator, pack_dataset
+
+        if not os.path.exists(args.pack_cache):
+            print(f"packing {len(train_ds)} samples -> {args.pack_cache}", flush=True)
+            pack_dataset(train_ds, args.pack_cache)
+        train_iter = NativePackedIterator(args.pack_cache, cfg.batch_size, seed=cfg.seed,
+                                          start_step=state.step, ring=cfg.prefetch_depth)
+    else:
+        train_iter = BatchIterator(train_ds, cfg.batch_size, seed=cfg.seed,
+                                   start_step=state.step, prefetch=cfg.prefetch_depth,
+                                   uint8_wire=cfg.uint8_wire)
     vfac = None
     if len(val_ds) >= cfg.batch_size:
         # fixed val rankings from the thresholded sampler (hourglass_provider.py:22)
@@ -434,9 +453,13 @@ def train(args: argparse.Namespace) -> dict:
         def on_train_end(self, tr, st, history):
             pass
 
-    state, history = trainer.fit(state, train_iter, val_iter_factory=vfac,
-                                 callbacks=[LogCB()], ckpt=auto_ckpt)
-    train_iter.close()
+    try:
+        state, history = trainer.fit(state, train_iter, val_iter_factory=vfac,
+                                     callbacks=[LogCB()], ckpt=auto_ckpt,
+                                     resident_store=resident_store)
+    finally:
+        if train_iter is not None:
+            train_iter.close()
     out = {"run_dir": logger.dir, "step": state.step, "loss": history["loss"],
            "val_loss": history["val_loss"]}
     if history.get("preempted"):

@@ -1,8 +1,7 @@
 """Datasets (``pldepth_tpu/data/datasets.py``): HR-WSI training data, the
 zero-shot evaluation sets and the synthetic set. Every dataset yields
 ``{"image": (H, W, 3) f32 [0,1], "gt": (H, W), "mask": (H, W)}`` at a fixed
-target size. The structured ``scenes`` set comes with the data path
-(ROADMAP.md queue 1 item 7).
+target size. The structured ``scenes`` set is ``data/scenes.py``.
 
 Ibims/DIODE/Sintel/TUM are test-only (mask = all ones) and carry
 ``asc_depth_order=True`` -- lower values are closer (reference
@@ -151,15 +150,22 @@ def _synthetic(root="", target_size=224, size=None, split="train", seed=0, shuff
     return SyntheticDepthDataset(size or 64, target_size, seed)
 
 
+def _load_scenes(root="", target_size=224, size=None, split="train", seed=0, shuffle=False):
+    from pldepth_torch.data.scenes import SceneDepthDataset
+
+    # distinct index streams per split so train/val scenes never coincide
+    return SceneDepthDataset(size or 64, target_size, seed + (1_000 if split != "train" else 0))
+
+
 DATASETS: Dict[str, Callable[..., DepthDataset]] = {
     "synthetic": _synthetic,
+    "scenes": _load_scenes,
     "HR-WSI": load_hrwsi,
     "IBIMS": load_ibims,
     "TUM": load_tum,
     "DIODE": load_diode,
     "SINTEL": load_sintel,
 }
-_LATER = {"scenes": "item 7"}
 
 
 def get_dataset(name: str, **kwargs) -> DepthDataset:
@@ -167,8 +173,5 @@ def get_dataset(name: str, **kwargs) -> DepthDataset:
     canonical = {k.lower(): k for k in DATASETS}
     key = canonical.get(name.lower().replace("_", "-")) or canonical.get(name.lower())
     if key is None:
-        if name.lower() in _LATER:
-            raise NotImplementedError(
-                f"dataset {name!r} is not ported yet: ROADMAP.md queue 1 {_LATER[name.lower()]}")
         raise ValueError(f"Unknown dataset name: {name} (have {sorted(DATASETS)})")
     return DATASETS[key](**kwargs)

@@ -5,9 +5,10 @@ The host only decodes and batches raw (image, gt, mask) arrays; flip and
 ranking sampling run in the train step on the device. The batch stream is
 the JAX package's: epoch ``e``'s permutation comes from
 ``np.random.default_rng((seed, e))``, so the same dataset and seed give the
-same batches in both packages, and ``start_step=k`` resumes the stream at
-batch ``k``. Multi-host sharding and the uint8 wire format come with later
-slices (ROADMAP.md queue 1 items 11 and 7).
+same batches in both packages, ``start_step=k`` resumes the stream at batch
+``k``, and ``shard_index`` / ``num_shards`` take the same disjoint stride of
+each permutation. ``uint8_wire`` sends images and masks as uint8; the train
+step rescales on the device (train/trainer.py ``_to_device``).
 """
 
 from __future__ import annotations
@@ -36,17 +37,32 @@ def _stack(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 
 class BatchIterator:
-    """Infinite shuffled batch iterator with a background prefetch thread;
-    drop_remainder semantics (fixed shapes only)."""
+    """Shuffled batch iterator with a background prefetch thread;
+    drop_remainder semantics (fixed shapes only).
 
-    def __init__(self, ds: DepthDataset, batch_size: int, seed: int = 0, prefetch: int = 2,
-                 start_step: int = 0):
-        if len(ds) < batch_size:
-            raise ValueError(f"dataset of {len(ds)} samples cannot fill batch {batch_size}")
-        self.ds, self.batch_size, self.seed, self.start_step = ds, batch_size, seed, start_step
+    ``loop=False`` ends after one epoch: ``StopIteration``, and the iterator
+    stays exhausted. ``shard_index`` / ``num_shards``: every shard draws the
+    same seeded epoch permutation and takes a disjoint stride of it, cut to
+    the common per-shard length so all shards count the same batches.
+    ``start_step``: skip the first N batches of the stream (resume).
+    ``uint8_wire``: images as ``uint8(clip(x * 255 + 0.5))`` and masks as
+    ``uint8(mask > 0)``, gt stays f32 (2.5x fewer bytes to the card). Off by
+    default: it quantizes images to 1/255 steps, exact for 8-bit sources
+    only. The same wire as ``data/packed.py:NativePackedIterator``."""
+
+    def __init__(self, ds: DepthDataset, batch_size: int, seed: int = 0, shuffle: bool = True,
+                 prefetch: int = 2, loop: bool = True, shard_index: int = 0,
+                 num_shards: int = 1, start_step: int = 0, uint8_wire: bool = False):
+        if len(ds) < batch_size * num_shards:
+            raise ValueError(f"dataset of {len(ds)} samples cannot fill batch "
+                             f"{batch_size} x {num_shards} hosts")
+        self.ds, self.batch_size, self.seed = ds, batch_size, seed
+        self.shuffle, self.loop = shuffle, loop
+        self.shard_index, self.num_shards = shard_index, num_shards
+        self.start_step, self.uint8_wire = start_step, uint8_wire
         self._q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
         self._stopped = False
-        self._error = None
+        self._done = False
         self._thread = threading.Thread(target=self._producer, daemon=True)
         self._thread.start()
 
@@ -54,7 +70,13 @@ class BatchIterator:
         epoch, skip = 0, self.start_step
         while True:
             idx = np.arange(len(self.ds))
-            np.random.default_rng((self.seed, epoch)).shuffle(idx)
+            if self.shuffle:
+                np.random.default_rng((self.seed, epoch)).shuffle(idx)
+            if self.num_shards > 1:
+                # the common per-shard length: a plain stride would give
+                # shards different batch counts when len(ds) % num_shards
+                common = len(idx) // self.num_shards
+                idx = idx[self.shard_index::self.num_shards][:common]
             n_batches = len(idx) // self.batch_size
             if skip >= n_batches:
                 skip -= n_batches
@@ -62,6 +84,8 @@ class BatchIterator:
                 for b in range(skip, n_batches):
                     yield idx[b * self.batch_size:(b + 1) * self.batch_size]
                 skip = 0
+            if not self.loop:
+                return
             epoch += 1
 
     def _put(self, item) -> bool:
@@ -74,11 +98,21 @@ class BatchIterator:
                 continue
         return False
 
+    def _to_wire(self, batch):
+        if self.uint8_wire:
+            batch["image"] = np.clip(batch["image"] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            if "mask" in batch:
+                batch["mask"] = (batch["mask"] > 0).astype(np.uint8)
+        return batch
+
     def _producer(self):
         try:
             for batch_idx in self._index_stream():
-                if self._stopped or not self._put(_stack([self.ds[int(i)] for i in batch_idx])):
+                if self._stopped:
                     return
+                if not self._put(self._to_wire(_stack([self.ds[int(i)] for i in batch_idx]))):
+                    return
+            self._put(None)  # end of a loop=False stream
         except Exception as e:  # handed to the consumer, raised by __next__
             self._put(e)
 
@@ -86,11 +120,14 @@ class BatchIterator:
         return self
 
     def __next__(self) -> Dict[str, np.ndarray]:
-        if self._error is not None:
-            raise self._error
+        if self._done:
+            raise StopIteration  # stay exhausted: the sentinel was consumed
         item = self._q.get()
+        if item is None:
+            self._done = True
+            raise StopIteration
         if isinstance(item, Exception):
-            self._error = item
+            self._done = True
             raise item
         return item
 

@@ -11,7 +11,9 @@ on the card), backward, the AMSGrad update (train/optim.py) and the finite
 guard: if the loss or any gradient is not finite, params, BN running
 statistics and optimizer state keep their values, and ``step`` still
 advances. The guard's flag stays on the device: every commit is a
-``torch.where`` on it, so a step needs no host sync.
+``torch.where`` on it, so a step needs no host sync. ``resident_step``
+runs the same step on a batch drawn and decoded on the device from a
+resident store (data/resident.py): no batch data crosses the host link.
 
 The JAX state is an immutable pytree; here the weights live in an
 ``nn.Module`` that the state holds, and the train step updates that module
@@ -38,6 +40,7 @@ from pldepth_torch.core.config import ExperimentConfig, sampler_name_for_type
 from pldepth_torch.core.device import DeviceLike, resolve_device
 from pldepth_torch.core.rng import generator
 from pldepth_torch.data.preprocess import normalize_images, random_flip_batch
+from pldepth_torch.data.resident import decode_gt
 from pldepth_torch.models.layers import TrainPass
 from pldepth_torch.models.pldepth_net import (
     EffNetFullyFledged,
@@ -55,7 +58,6 @@ log = logging.getLogger(__name__)
 _NOT_PORTED_OPTIONS = (
     ("qres", "item 11"), ("qenc", "item 11"), ("sparse_tail", "item 11"),
     ("remat_encoder", "item 11"), ("spatial_sharding", "item 11"),
-    ("data_resident", "item 7"), ("uint8_wire", "item 7"),
 )
 
 
@@ -239,6 +241,54 @@ class Trainer:
         rankings, the active-learning path)."""
         b = self._to_device(batch)
         return self._step(state, b["image"], b["rankings"])
+
+    @torch.no_grad()
+    def resident_batch(self, state: TrainState, arrays: Dict[str, torch.Tensor],
+                       idx: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The batch of ``state.step`` from a resident store's ``arrays``
+        (data/resident.py): ``batch_size`` rows drawn uniformly with
+        replacement by a generator on the store's device keyed by (seed,
+        "train/resident", step), gathered, and gt decoded there (``u16 *
+        gt_scale``, the scale a device tensor); image and mask stay uint8
+        for ``_to_device``. ``idx`` injects the rows."""
+        image = arrays["image"]
+        if idx is None:
+            gen = generator(state.seed, "train/resident", state.step, image.device)
+            idx = torch.randint(0, image.shape[0], (self.cfg.batch_size,), generator=gen,
+                                device=image.device)
+        return {"image": image.index_select(0, idx),
+                "gt": decode_gt(arrays["gt"].index_select(0, idx), arrays["gt_scale"]),
+                "mask": arrays["mask"].index_select(0, idx)}
+
+    def resident_step(self, state: TrainState, arrays: Dict[str, torch.Tensor],
+                      idx: Optional[torch.Tensor] = None) -> Tuple[TrainState, StepMetrics]:
+        """One train step on the batch ``resident_batch`` draws: the same
+        body as ``train_step``, with no host-to-device batch copy. The draw
+        is a pure function of (seed, step), so a resumed run draws what the
+        uninterrupted one drew."""
+        return self.train_step(state, self.resident_batch(state, arrays, idx))
+
+    def resident_chain(self, n: int) -> Callable:
+        """``(state, arrays) -> (state, metrics)`` running ``n`` resident
+        steps back to back with no host sync between them; ``loss``, ``lr``
+        and ``finite`` each have shape (n,), ``done`` is the last step's.
+        The same result as ``n`` calls of ``resident_step`` (the draws are
+        keyed by step). ``n <= 1`` gives ``resident_step`` itself. The steps
+        are queued one by one from Python; one CUDA graph of the chain (the
+        JAX package's single dispatch) is ROADMAP.md queue 1 item 11 / P3."""
+        if n <= 1:
+            return self.resident_step
+
+        def chain(state: TrainState, arrays) -> Tuple[TrainState, StepMetrics]:
+            ms = []
+            for _ in range(n):
+                state, m = self.resident_step(state, arrays)
+                ms.append(m)
+            return state, StepMetrics(
+                loss=torch.stack([m.loss for m in ms]), lr=torch.stack([m.lr for m in ms]),
+                finite=torch.stack([m.finite for m in ms]), done=ms[-1].done)
+
+        return chain
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> torch.Tensor:
@@ -429,12 +479,11 @@ class Trainer:
         finally:
             signal.signal(signal.SIGTERM, prev)
 
-    def fit(self, state: TrainState, train_iter: Iterator[Dict[str, np.ndarray]],
+    def fit(self, state: TrainState, train_iter: Optional[Iterator[Dict[str, np.ndarray]]],
             epochs: Optional[int] = None,
             val_iter_factory: Optional[Callable[[], Iterator[Dict[str, np.ndarray]]]] = None,
-            callbacks=(), ckpt=None) -> Tuple[TrainState, Dict[str, list]]:
-        """Run the train loop (``pldepth_tpu`` ``Trainer.fit`` without the
-        resident-data path).
+            callbacks=(), ckpt=None, resident_store=None) -> Tuple[TrainState, Dict[str, list]]:
+        """Run the train loop (``pldepth_tpu`` ``Trainer.fit``).
 
         ``ckpt``: optional CheckpointManager for full-state saves labelled by
         global step, one per ``checkpoint_every_epochs`` epochs (and after
@@ -443,8 +492,15 @@ class Trainer:
         ``start_step=state.step``, so the data stream, the per-step
         generators and the LR schedule line up with the uninterrupted run.
         The next host batch is fetched while the step runs on the card; at
-        most two steps are in flight (the loop waits for step n-1 after
-        queueing step n)."""
+        most two steps (or chains) are in flight (the loop waits for the
+        one before after queueing the next).
+
+        ``resident_store``: a data/resident.py ResidentStore; the steps draw
+        their batches from it on the device and ``train_iter`` is ignored
+        (pass None). ``cfg.resident_chain_steps`` steps run per
+        ``resident_chain`` call; ``on_step_end`` still fires every
+        ``log_every`` steps, and request_stop() lands between chains. Resume
+        stays exact: the draws are a pure function of (seed, step)."""
         epochs = epochs if epochs is not None else self.cfg.epochs
         history: Dict[str, list] = {"loss": [], "val_loss": [], "lr": [], "ips": []}
         start_step = state.step
@@ -452,42 +508,53 @@ class Trainer:
         offset = start_step % self.steps_per_epoch
         if start_step:
             log.info("resuming at step %d (epoch %d + %d steps)", start_step, start_epoch, offset)
+        resident = resident_store is not None
+        chain_n = max(1, self.cfg.resident_chain_steps) if resident else 1
         preempted = False
         for cb in callbacks:
             cb.on_train_begin(self)
         with self._preemption_guard():
-            next_batch = next(train_iter)
+            next_batch = None if resident else next(train_iter)
             for epoch in range(start_epoch, epochs):
                 t0 = time.time()
                 metrics_all: List[StepMetrics] = []
-                first = offset if epoch == start_epoch else 0
-                for step_i in range(first, self.steps_per_epoch):
-                    state, metrics = self.train_step(state, next_batch)
-                    # overlap the next host fetch with the step on the card
-                    next_batch = next(train_iter)
+                step_i = offset if epoch == start_epoch else 0
+                while step_i < self.steps_per_epoch:
+                    if resident:
+                        k = min(chain_n, self.steps_per_epoch - step_i)
+                        state, metrics = self.resident_chain(k)(state, resident_store.arrays)
+                    else:
+                        k = 1
+                        state, metrics = self.train_step(state, next_batch)
+                        # overlap the next host fetch with the step on the card
+                        next_batch = next(train_iter)
                     metrics_all.append(metrics)
                     if len(metrics_all) >= 2 and metrics_all[-2].done is not None:
                         metrics_all[-2].done.synchronize()
-                    if self.cfg.log_every and (step_i + 1) % self.cfg.log_every == 0:
-                        for cb in callbacks:
-                            if hasattr(cb, "on_step_end"):
-                                cb.on_step_end(self, epoch * self.steps_per_epoch + step_i,
-                                               {"loss": float(metrics.loss),
-                                                "lr": float(metrics.lr)})
+                    for j in range(k):
+                        if self.cfg.log_every and (step_i + j + 1) % self.cfg.log_every == 0:
+                            for cb in callbacks:
+                                if hasattr(cb, "on_step_end"):
+                                    cb.on_step_end(self, epoch * self.steps_per_epoch + step_i + j,
+                                                   {"loss": float(metrics.loss.reshape(-1)[j]),
+                                                    "lr": float(metrics.lr.reshape(-1)[j])})
+                    step_i += k
                     if self._stop_requested:
                         preempted = True
                         break
-                n_steps = len(metrics_all)
-                losses = ([float(x) for x in torch.stack([m.loss for m in metrics_all]).cpu()]
+                losses = ([float(x) for x in torch.cat([m.loss.reshape(-1)
+                                                        for m in metrics_all]).cpu()]
                           if metrics_all else [])
+                n_steps = len(losses)
                 # finite covers grads too: a NaN backward with a finite loss
                 # must still stop the run (the guard kept the old params)
                 finite = bool(np.all(np.isfinite(losses))) and all(
-                    bool(f) for f in torch.stack([m.finite for m in metrics_all]).cpu()
+                    bool(f) for f in torch.cat([m.finite.reshape(-1) for m in metrics_all]).cpu()
                 ) if metrics_all else True
                 dt = time.time() - t0
                 history["loss"].append(float(np.mean(losses)) if losses else float("nan"))
-                history["lr"].append(float(metrics_all[-1].lr) if metrics_all else float("nan"))
+                history["lr"].append(float(metrics_all[-1].lr.reshape(-1)[-1])
+                                     if metrics_all else float("nan"))
                 history["ips"].append(n_steps * self.cfg.batch_size / dt)
 
                 if preempted:

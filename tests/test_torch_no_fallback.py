@@ -1,9 +1,10 @@
 """The port stands alone and never swaps devices: no module of
 ``pldepth_torch`` (nor ``chip_smoke.py``) imports jax, flax or
 pldepth_tpu, and none imports cv2, PIL, scipy or h5py when it is imported
-(the card's machine has scipy only; the readers import them); entry points raise without a card unless the CPU is asked
-for; the K2 wrapper has no try/except path; chip_smoke.py fails without a
-card and when run away from the repository."""
+(the readers and scenes import them where they use them); entry points and
+the resident store raise without a card unless the CPU is asked for; the
+kernel wrappers and the packed reader's build have no try/except path;
+chip_smoke.py fails without a card and when run away from the repository."""
 
 import ast
 import glob
@@ -60,6 +61,19 @@ def test_optional_libraries_are_imported_lazily(path):
     assert not bad, f"{path} imports {bad} when it is imported"
 
 
+def test_data_path_imports_no_optional_library():
+    """Importing the data path (scenes, the packed reader, the resident
+    store, the trainer) loads neither cv2 nor scipy: scenes imports them
+    inside the functions that use them."""
+    code = ("import sys; import pldepth_torch.data, pldepth_torch.data.scenes, "
+            "pldepth_torch.data.packed, pldepth_torch.data.resident, pldepth_torch.train; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & {'cv2', 'scipy', 'PIL', 'h5py'}))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from pldepth_torch.core.config import ExperimentConfig
     from pldepth_torch.core.device import resolve_device
@@ -83,6 +97,9 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     ("listmle_kernel.py", "ranking_loss_fwd"),
     ("listmle_kernel.py", "ranking_loss_bwd"),
     ("listmle_kernel.py", "RankingLoss"),
+    ("../data/packed.py", "build_native"),
+    ("../data/packed.py", "_load_lib"),
+    ("../data/packed.py", "NativePackedIterator"),
 ])
 def test_kernel_wrapper_has_no_fallback_path(module, fn):
     path = os.path.join(REPO, "pldepth_torch", "ops", module)
@@ -120,6 +137,17 @@ def test_auto_impl_sends_cuda_maps_to_the_fused_kernel(monkeypatch):
                         lambda p, r: (_ for _ in ()).throw(AssertionError("plain")))
     listmle.pl_ranking_loss(torch.zeros(1, 4, 4, 1), torch.zeros(1, 2, 3, 2), impl="auto")
     assert seen == ["kernel"]
+
+
+def test_resident_store_raises_without_a_card(monkeypatch):
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.data.resident import build_resident_store
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = SyntheticDepthDataset(2, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_resident_store(ds)
+    assert build_resident_store(ds, "cpu").arrays["image"].device.type == "cpu"
 
 
 def test_trainer_and_cli_train_raise_without_a_card(monkeypatch, tmp_path):

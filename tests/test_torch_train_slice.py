@@ -250,9 +250,9 @@ def test_config_json_precedence_matches_jax():
 
 @pytest.mark.parametrize("flags,item", [
     (["--qres", "int8"], "item 11"), (["--sparse_tail", "true"], "item 11"),
-    (["--uint8_wire", "true"], "item 7"), (["--pack_cache", "x.pack"], "item 7"),
+    (["--mesh_model", "2"], "item 11"), (["--spatial_sharding", "true"], "item 11"),
     (["--profile", "true"], "item 12"), (["--use_wandb", "true"], "item 12"),
-    (["--qenc", "int8"], "item 11"), (["--dataset", "scenes"], "item 7"),
+    (["--qenc", "int8"], "item 11"), (["--use_tensorboard", "true"], "item 12"),
 ])
 def test_cli_train_unported_options_name_their_item(flags, item, tmp_path):
     from pldepth_torch.cli import main
