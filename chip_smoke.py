@@ -131,6 +131,27 @@ Phases (any failure exits non-zero):
      step, peak memory; pack and store seconds and sizes; then cli train
      --data_resident true --resident_chain_steps 2 on 80 scenes (K1
      launches, the store line, weights.npz).
+ 15. export and the training options: ff_effnet at 448^2 (bf16, seeded
+     synth_weight weights, randomised BN statistics) through cli export at
+     fixed batch 8 and batch-polymorphic, each artifact loaded and run in a
+     fresh process that imports serve/export.py alone (no model code):
+     maps against predict_bnfold (rel <= 3e-2; the polymorphic one at
+     batches 1, 3 and 8; f32 at 96^2 rel <= 1e-5), a fixed-batch artifact
+     refuses another batch, cli serve --artifact --once true over 32 PNGs
+     writes the in-process artifact's maps exactly; ms per batch and served
+     img/s beside predict_bnfold. Then configs/ff_effnet_448.json at batch
+     32 for 10 steps each: plain, grad_accum 2, remat_encoder, sparse_tail,
+     qres int8, qres bf16, qenc bf16, qenc int8, and ff_redweb with
+     sparse_tail at batch 4: the loss of every step, ms a step (events),
+     peak memory, the idle share of a 1-step window; gates: finite losses;
+     grad_accum params bit-equal after odd micro-steps and moved after even
+     ones; remat's first loss equal to the plain run's, its first gradient
+     within rel 1e-2 (its first update recorded beside the card's own
+     spread) and its peak below; sparse_tail one sorted K1 forward
+     and backward a step and no fused one, its first loss within rel 1e-2
+     of the dense run's; qres peak int8 < bf16 < off; qenc int8 one K4
+     launch a step at every dense int8 encoder site and each site's pack
+     built once; qenc's encoder bit-equal after its steps.
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -2694,6 +2715,420 @@ def data_path_phase(smi: str, device="cuda", size=SIZE, batch=BATCH_TRAIN, n=DAT
     return rec
 
 
+# phase 15: export and the training options ------------------------------------------
+OPT_STEPS = 10  # train steps of each option run
+EXPORT_TOL = {"bfloat16": 3e-2, "float32": 1e-5}  # artifact vs predict_bnfold, max rel
+EXPORT_POLY_BATCHES = (1, 3, 8)
+ARTIFACT_CHILD = r"""
+import json, sys
+import numpy as np
+import torch
+from pldepth_torch.serve.export import load_exported
+path, x_path, out_path, batches = sys.argv[1], sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+call, meta = load_exported(path)
+x = np.load(x_path)
+outs = {str(b): call(x[:b]).float().cpu().numpy() for b in batches}
+np.savez(out_path, **outs)
+print(json.dumps({"meta": meta, "models_imported": "pldepth_torch.models" in sys.modules,
+                  "pldepth": sorted(m for m in sys.modules if m.startswith("pldepth"))}))
+"""
+
+
+def max_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def start_artifact_children(paths, x_path: str, tmp: str):
+    """Each artifact loaded and run in its own fresh process that imports
+    serve/export.py alone (torch, json, numpy), all started at once; pass
+    the result to :func:`artifact_children`."""
+    procs = {}
+    for path, batches in paths.items():
+        out = os.path.join(tmp, os.path.basename(path) + ".npz")
+        procs[path] = (out, subprocess.Popen(
+            [sys.executable, "-c", ARTIFACT_CHILD, path, x_path, out, json.dumps(batches)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def artifact_children(procs):
+    """{path: (report, {batch: maps})} of the processes
+    :func:`start_artifact_children` started, once each has ended."""
+    import numpy as np
+
+    got = {}
+    for path, (out, proc) in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            fail(f"loading {path} in a fresh process failed: {stderr[-2000:]}")
+        report = json.loads(stdout.strip().splitlines()[-1])
+        if report["models_imported"]:
+            fail(f"loading {path} imported the model code: {report['pldepth']}")
+        with np.load(out) as z:
+            got[path] = (report, {int(k): z[k] for k in z.files})
+    return got
+
+
+def export_phase(decode, chunks, smi: str) -> dict:
+    """Phase 15a: ff_effnet at 448^2, bf16, the bn_fold graph through ``cli
+    export`` (fixed batch 8 and polymorphic), each artifact loaded in a
+    fresh process without the model code (started as soon as it is
+    written, while this process goes on), held against predict_bnfold; f32
+    at 96^2; ``cli serve --artifact`` over 32 images; times."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.models.pretrained import flax_from_state_dict, overlay_synthetic
+    from pldepth_torch.serve.daemon import artifact_infer
+    from pldepth_torch.serve.export import export_predict, load_exported
+    from pldepth_torch.serve.pipeline import decode_image_chunk
+    from pldepth_torch.train import Trainer
+    from pldepth_torch.train.checkpoint import save_weights_npz
+
+    rec = {}
+    trainer = Trainer(ExperimentConfig(model_name="ff_effnet", input_size=SIZE))
+    state = trainer.init_state()
+    overlay_synthetic(state.model, list(flax_from_state_dict(state.model.state_dict())))
+    randomise_bn(state.model, seed=5)
+    imgs = torch.from_numpy(np.random.default_rng(15).uniform(
+        size=(BATCH_SERVE, SIZE, SIZE, 3)).astype(np.float32)).cuda()
+    want = trainer.predict_bnfold(state, imgs)
+    with tempfile.TemporaryDirectory() as tmp:
+        wpath, x_path = os.path.join(tmp, "weights.npz"), os.path.join(tmp, "x.npy")
+        save_weights_npz(wpath, state)
+        np.save(x_path, imgs.cpu().numpy())
+        paths, procs, t0 = {}, {}, time.time()
+        for name, batch, runs in (("fixed", BATCH_SERVE, [BATCH_SERVE]),
+                                  ("poly", 0, list(EXPORT_POLY_BATCHES))):
+            paths[name] = os.path.join(tmp, f"{name}.plx")
+            lines, secs = run_cli(["export", "--model_name", "ff_effnet", "--load_model_path",
+                                   wpath, "--out", paths[name], "--input_size", str(SIZE),
+                                   "--batch_size", str(batch)])
+            rec[f"export_{name}_s"] = secs
+            rec[f"artifact_{name}_mb"] = os.path.getsize(paths[name]) / 1e6
+            log(f"cli export {name}: {secs:.2f} s, {rec[f'artifact_{name}_mb']:.2f} MB")
+            procs.update(start_artifact_children({paths[name]: runs}, x_path, tmp))
+        call, meta = load_exported(paths["fixed"])
+        try:
+            call(imgs[:3])
+        except Exception as e:  # the guard of a fixed-batch program
+            log(f"fixed-batch artifact refuses batch 3: {type(e).__name__}")
+        else:
+            fail("the fixed-batch artifact ran a batch of 3")
+        # f32 at 96^2
+        g32 = Trainer(ExperimentConfig(model_name="ff_effnet", input_size=96,
+                                       compute_dtype="float32"))
+        s32 = g32.init_state()
+        overlay_synthetic(s32.model, list(flax_from_state_dict(s32.model.state_dict())))
+        randomise_bn(s32.model, seed=6)
+        p32 = os.path.join(tmp, "f32.plx")
+        export_predict(g32, s32, 2, p32, bn_fold=True)
+        x96 = torch.from_numpy(np.random.default_rng(16).uniform(
+            size=(2, 96, 96, 3)).astype(np.float32)).cuda()
+        rec["f32_rel"] = rel = max_rel(load_exported(p32)[0](x96), g32.predict_bnfold(s32, x96))
+        log(f"artifact f32 96^2 vs predict_bnfold: rel {rel:.3e} (tol {EXPORT_TOL['float32']:g})")
+        if rel > EXPORT_TOL["float32"]:
+            fail(f"the f32 artifact disagrees with predict_bnfold: rel {rel:.3e}")
+        # cli serve --artifact over 32 images
+        watch, out = os.path.join(tmp, "watch"), os.path.join(tmp, "out")
+        os.makedirs(watch)
+        rng = np.random.default_rng(17)
+        for i in range(32):
+            Image.fromarray(rng.integers(0, 256, (SIZE, SIZE, 3), np.uint8)).save(
+                os.path.join(watch, f"im{i:02d}.png"))
+        lines, secs = run_cli(["serve", "--artifact", paths["fixed"], "--watch_dir", watch,
+                               "--out_dir", out, "--once", "true", "--poll_interval", "0.01"])
+        rec["cli_serve_s"] = secs
+        files = sorted(os.listdir(watch))
+        written = sorted(os.listdir(out))
+        if len(written) != 32:
+            fail(f"cli serve --artifact wrote {len(written)} maps of 32")
+        worst = 0.0
+        for c in range(0, 32, BATCH_SERVE):
+            chunk = files[c: c + BATCH_SERVE]
+            ref = call(decode_image_chunk([os.path.join(watch, f) for f in chunk], SIZE))
+            for f, r in zip(chunk, ref.float().cpu().numpy()):
+                got = np.load(os.path.join(out, f[:-4] + "_depth.npy"))
+                worst = max(worst, float(np.abs(got - r).max()))
+        rec["cli_serve_max_abs_diff"] = worst
+        log(f"cli serve --artifact --once true: 32 maps in {secs:.2f} s; max |d| against the "
+            f"in-process artifact {worst:.3e}")
+        if worst != 0.0:
+            fail(f"cli serve --artifact maps differ from the in-process artifact's: {worst:.3e}")
+        # the fresh processes
+        child = artifact_children(procs)
+        rec["child_s"] = time.time() - t0
+        checks = []
+        for name in ("fixed", "poly"):
+            report, outs = child[paths[name]]
+            for b, maps in outs.items():
+                rel = max_rel(torch.from_numpy(maps), want[:b].cpu())
+                checks.append({"artifact": name, "batch": b, "rel": rel})
+                log(f"artifact {name} in a fresh process ({report['pldepth']}), batch {b}: "
+                    f"{maps.shape}, vs predict_bnfold rel {rel:.3e} "
+                    f"(tol {EXPORT_TOL['bfloat16']:g})")
+                if maps.shape != (b, SIZE, SIZE) or not np.isfinite(maps).all() \
+                        or rel > EXPORT_TOL["bfloat16"]:
+                    fail(f"artifact {name} at batch {b}: shape {maps.shape} or rel {rel:.3e}")
+        rec["checks"] = checks
+        # times
+        times, _ = alternating_ms({"artifact": lambda: call(imgs),
+                                   "predict_bnfold": lambda: trainer.predict_bnfold(state, imgs)},
+                                  smi, f"batch of {BATCH_SERVE} at {SIZE}^2 bf16", rounds=4,
+                                  reps=5)
+        rec["batch_ms"] = times
+        infer, _ = artifact_infer(paths["fixed"])
+        bnfold = trainer.jit_predict("bn_fold")
+        rec["served_img_per_s"] = {
+            "artifact": served_img_per_s(infer, decode, chunks, smi, "artifact", n_e2e=4),
+            "predict_bnfold": served_img_per_s(lambda a: bnfold(state, a), decode, chunks, smi,
+                                               "bn_fold", n_e2e=4)}
+    return rec
+
+
+def trainable_flat(model, skip_zero_grad: bool = False):
+    """The trainable parameters as one flat tensor; without the decoder
+    conv biases that feed a batch-statistics BN (zero gradient: their
+    first AMSGrad update is lr * sign(noise)) when ``skip_zero_grad``."""
+    import torch
+
+    keep = [p for n, p in model.named_parameters() if p.requires_grad and not (
+        skip_zero_grad and re.fullmatch(r"decoder\.conv\d\.bias", n))]
+    return torch.cat([p.detach().reshape(-1) for p in keep])
+
+
+def k_counts():
+    from pldepth_torch.models.quantize import QuantConv
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.ops import quant_matmul as k4
+
+    out = {n: getattr(k1, n).launches for n in ("listmle_fwd", "listmle_bwd",
+                                                "ranking_loss_fwd", "ranking_loss_bwd")}
+    out["quant_matmul"] = k4.quant_matmul.launches
+    out["pack_builds"] = QuantConv.derivations
+    return out
+
+
+def reset_counts() -> None:
+    from pldepth_torch.models.quantize import QuantConv
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.ops import quant_matmul as k4
+
+    for n in ("listmle_fwd", "listmle_bwd", "ranking_loss_fwd", "ranking_loss_bwd"):
+        getattr(k1, n).launches = 0
+    k4.quant_matmul.launches = 0
+    QuantConv.derivations = 0
+
+
+def option_run(name: str, cfg, batches, smi: str, watch=None) -> dict:
+    """OPT_STEPS train steps of ``cfg`` from its seeded initial state over
+    ``batches`` (device batches, in turn): the loss of every step, ms a
+    step (CUDA events, the median from the third step), peak memory, the
+    kernel counts of the run (set to 0 before it), the trainable
+    parameters before and after the first step, and the idle share of a
+    1-step profiler window taken afterwards. ``watch(i, trainer, state)``
+    runs after step i."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(cfg, steps_per_epoch=OPT_STEPS)
+    state = trainer.init_state()
+    rec = {"name": name}
+    if cfg.qenc == "int8":
+        trainer.prepare_qenc(state, batches[0]["image"])
+    enc0 = {k: v.clone() for k, v in state.model.encoder.state_dict().items()}
+    init = trainable_flat(state.model, skip_zero_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(OPT_STEPS + 1)]
+    losses = []
+    ev[0].record()
+    for i in range(OPT_STEPS):
+        state, m = trainer.train_step(state, batches[i % len(batches)])
+        ev[i + 1].record()
+        losses.append(m.loss)
+        if i == 0:
+            rec["first_update"] = trainable_flat(state.model, skip_zero_grad=True) - init
+        if watch is not None:
+            watch(i, trainer, state)
+    torch.cuda.synchronize()
+    rec["counts"] = k_counts()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(OPT_STEPS)]
+    rec["step_ms_all"], rec["step_ms"] = step_ms, float(np.median(step_ms[2:]))
+    rec["losses"] = [float(v) for v in losses]
+    rec["encoder_unchanged"] = all(torch.equal(v, enc0[k])
+                                   for k, v in state.model.encoder.state_dict().items())
+    if not np.all(np.isfinite(rec["losses"])):
+        fail(f"option {name}: non-finite losses {rec['losses']}")
+    rec["trainer"], rec["state"] = trainer, state
+    box = [state]
+
+    def one():
+        box[0], _m = trainer.train_step(box[0], batches[0])
+
+    _, by_kernel, _ = kernel_window(one, 1)
+    rec["busy_ms"] = busy = sum(by_kernel.values())
+    rec["idle_share"] = 1 - busy / rec["step_ms"]
+    log(f"option {name:16s}: {rec['step_ms']:.3f} ms a step of {cfg.batch_size} at "
+        f"{cfg.input_size}^2 (events, median of steps 3-{OPT_STEPS}); peak "
+        f"{rec['peak_gb']:.2f} GB; busy {busy:.3f} ms, idle {rec['idle_share']:.3f}; counts "
+        f"{rec['counts']}; losses {[round(v, 4) for v in rec['losses']]} [{smi}]")
+    return rec
+
+
+def first_step_grads(cfg, batch, n: int = 1):
+    """The gradients of step 0 of ``cfg`` from its seeded initial state on
+    ``batch``, ``n`` times (the train step's own rankings, generator and
+    loss; the trainable parameters as one flat tensor without the decoder
+    conv biases that feed a BN): [(loss, grads)]."""
+    import torch
+
+    from pldepth_torch.data.preprocess import normalize_images
+    from pldepth_torch.models.layers import TrainPass
+    from pldepth_torch.ops.listmle import pl_ranking_loss
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(cfg, steps_per_epoch=OPT_STEPS)
+    state = trainer.init_state()
+    images, rankings = trainer._rankings(state, trainer._to_device(batch))
+    x = normalize_images(images, trainer.model.preprocess)
+    params = [p for name, p in state.model.named_parameters() if p.requires_grad
+              and not re.fullmatch(r"decoder\.conv\d\.bias", name)]
+    out = []
+    for _ in range(n):
+        for p in state.model.parameters():
+            p.grad = None
+        pred = state.model(x, TrainPass(gen=trainer._gen(state, "droppath")))
+        loss = pl_ranking_loss(pred, rankings, impl=cfg.listmle_impl)
+        loss.backward()
+        out.append((float(loss), torch.cat([p.grad.reshape(-1) for p in params])))
+    return out
+
+
+def options_phase(smi: str) -> dict:
+    """Phase 15b: configs/ff_effnet_448.json at batch 32 for OPT_STEPS steps
+    with each training option, and ff_redweb with sparse_tail at its
+    config's batch, with the gates on each."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.models.quantize import quant_sites
+
+    base = load_config(EFFNET_CONFIG).replace(batch_size=BATCH_TRAIN, input_size=SIZE,
+                                              dataset="synthetic")
+    rw = load_config(REDWEB_CONFIG).replace(input_size=SIZE, dataset="synthetic", sparse_tail=True)
+    n = 2 * max(BATCH_TRAIN, rw.batch_size)
+    ds = SyntheticDepthDataset(n, SIZE, seed=3)
+    rows = [ds[i] for i in range(n)]
+
+    def device_batches(b):
+        return [{k: torch.from_numpy(np.stack([r[k] for r in rows[j * b:(j + 1) * b]])).cuda()
+                 for k in ("image", "gt", "mask")} for j in range(2)]
+
+    batches = device_batches(BATCH_TRAIN)
+    runs = {}
+    accum = {"prev": None, "moved": []}
+
+    def watch_accum(i, trainer, state):
+        now = trainable_flat(state.model)
+        if accum["prev"] is not None:
+            accum["moved"].append(not torch.equal(now, accum["prev"]))
+        accum["prev"] = now
+
+    options = [("plain", {}), ("grad_accum_2", {"grad_accum": 2}),
+               ("remat_encoder", {"remat_encoder": True}), ("sparse_tail", {"sparse_tail": True}),
+               ("qres_int8", {"qres": "int8"}), ("qres_bf16", {"qres": "bf16"}),
+               ("qenc_bf16", {"qenc": "bf16"}), ("qenc_int8", {"qenc": "int8"})]
+    for name, opt in options:
+        rec = option_run(name, base.replace(**opt), batches, smi,
+                         watch=watch_accum if name == "grad_accum_2" else None)
+        if name == "qenc_int8":
+            enc = rec["trainer"]._qenc[1]
+            rec["int8_dense_sites"] = sum(m.groups == 1 for m in quant_sites(enc).values())
+            rec["int8_sites"] = len(quant_sites(enc))
+        rec.pop("trainer"), rec.pop("state")
+        runs[name] = rec
+        torch.cuda.empty_cache()
+    runs["redweb_sparse_tail"] = rec = option_run("redweb_sparse", rw, device_batches(rw.batch_size),
+                                                  smi)
+    rec.pop("trainer"), rec.pop("state")
+    torch.cuda.empty_cache()
+
+    # gates
+    plain, c = runs["plain"], lambda r: r["counts"]
+    # micro-step 1 leaves the params bit-equal; then every second one moves them
+    moved = [bool(runs["grad_accum_2"]["first_update"].abs().max() > 0)] + accum["moved"]
+    want = [i % 2 == 1 for i in range(OPT_STEPS)]
+    log(f"grad_accum 2: params moved after steps 1-{OPT_STEPS}: {moved}")
+    if moved != want:
+        fail(f"grad_accum 2: params must stay after odd micro-steps and move after even ones: "
+             f"{moved}")
+    # remat: the first step's gradient against the plain path's. AMSGrad's
+    # first update is lr * g / (|g| + eps), lr * sign(g) at eps 1e-7, so an
+    # update rel counts the sign flips of gradients at the noise floor of
+    # the atomic backward: recorded beside the card's own spread (two plain
+    # backward passes), gated through the gradient it is made of
+    r = runs["remat_encoder"]
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    upd = lambda g: g / (g.abs() + base.adam_eps)  # noqa: E731
+    (lp, gp), (_, gp2) = first_step_grads(base, batches[0], 2)
+    ((lr_, gr),) = first_step_grads(base.replace(remat_encoder=True), batches[0])
+    r["first_update_rel"] = rel(r["first_update"], plain["first_update"])
+    r["first_grad_rel"], r["first_grad_rel_plain_twice"] = rel(gr, gp), rel(gp2, gp)
+    r["first_update_rel_from_grads"] = rel(upd(gr), upd(gp))
+    r["first_update_rel_plain_twice"] = rel(upd(gp2), upd(gp))
+    log(f"remat_encoder: first loss {r['losses'][0]!r} vs plain {plain['losses'][0]!r} (step "
+        f"0 again: {lr_!r} / {lp!r}); first gradient rel {r['first_grad_rel']:.3e} (tol 1e-2; "
+        f"plain twice {r['first_grad_rel_plain_twice']:.3e}); first update rel "
+        f"{r['first_update_rel']:.3e} in the runs, {r['first_update_rel_from_grads']:.3e} from "
+        f"the gradients (plain twice {r['first_update_rel_plain_twice']:.3e}); peak "
+        f"{r['peak_gb']:.2f} vs {plain['peak_gb']:.2f} GB")
+    if (r["losses"][0] != plain["losses"][0] or lr_ != lp or r["first_grad_rel"] > 1e-2
+            or not r["peak_gb"] < plain["peak_gb"]):
+        fail("remat_encoder: its first loss must equal the plain run's, its first gradient be "
+             "within rel 1e-2 and its peak memory below the plain run's")
+    for name, n in (("sparse_tail", OPT_STEPS), ("redweb_sparse_tail", OPT_STEPS)):
+        got = c(runs[name])
+        if (got["listmle_fwd"], got["listmle_bwd"], got["ranking_loss_fwd"],
+                got["ranking_loss_bwd"]) != (n, n, 0, 0):
+            fail(f"{name}: K1 counts {got}, expected one sorted forward and backward a step "
+                 "and no fused launch")
+    s = runs["sparse_tail"]
+    rel = abs(s["losses"][0] / plain["losses"][0] - 1)
+    s["first_loss_rel"] = rel
+    log(f"sparse_tail: first loss {s['losses'][0]:.6f} vs dense {plain['losses'][0]:.6f}: rel "
+        f"{rel:.3e} (tol 1e-2)")
+    if rel > 1e-2:
+        fail(f"sparse_tail: first loss off the dense run's by rel {rel:.3e}")
+    peaks = [runs[n]["peak_gb"] for n in ("qres_int8", "qres_bf16", "plain")]
+    log(f"qres peak memory int8 / bf16 / off: {peaks} GB")
+    if not peaks[0] < peaks[1] < peaks[2]:
+        fail(f"qres: peak memory must order int8 < bf16 < off: {peaks}")
+    q = runs["qenc_int8"]
+    per_step = c(q)["quant_matmul"] / OPT_STEPS
+    log(f"qenc int8: K4 {c(q)['quant_matmul']} launches over {OPT_STEPS} steps ({per_step} a "
+        f"step; {q['int8_dense_sites']} dense int8 encoder sites); {c(q)['pack_builds']} site "
+        f"derivations ({q['int8_sites']} sites); encoder unchanged {q['encoder_unchanged']}")
+    if per_step != q["int8_dense_sites"] or c(q)["pack_builds"] != q["int8_sites"]:
+        fail("qenc int8: K4 must launch once a step at every dense int8 encoder site and each "
+             "site's pack be built once")
+    for name in ("qenc_int8", "qenc_bf16"):
+        if not runs[name]["encoder_unchanged"]:
+            fail(f"{name}: the encoder's parameters or BN buffers moved")
+    for name, rec in runs.items():
+        for key in ("first_update",):
+            rec[key] = float(rec[key].norm())
+    return runs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every number here as JSON")
@@ -2854,7 +3289,7 @@ def main() -> int:
     mark("4")
 
     # 5. K1 against its plain version ---------------------------------------------
-    record["k1_checks"], _, _ = check_k1()
+    record["k1_checks"], k1s_fwd_err, k1s_bwd_err = check_k1()
     record["k1_fused_checks"], k1_fwd_err, k1_bwd_err = check_ranking_loss()
 
     mark("5")
@@ -2934,6 +3369,12 @@ def main() -> int:
 
     mark("14")
 
+    # 15. export and artifact serving; the training options -----------------------------
+    record["export"] = export_phase(decode, chunks, smi)
+    record["options"] = rec_o = options_phase(smi)
+
+    mark("15")
+
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",
         "source": "pldepth_torch/csrc/fused_mbconv.cu",
@@ -2960,9 +3401,20 @@ def main() -> int:
     } for name, replaces, err in (
         ("ranking_loss_fwd", "pldepth_tpu/ops/listmle_pallas.py:111", k1_fwd_err),
         ("ranking_loss_bwd", "pldepth_tpu/ops/listmle_pallas.py:121", k1_bwd_err))] + [{
+        "name": name, "route": "cuda", "source": "pldepth_torch/csrc/listmle.cu",
+        "replaces": replaces,
+        "launches": (rec_o["sparse_tail"]["counts"][name]
+                     + rec_o["redweb_sparse_tail"]["counts"][name]),
+        "max_abs_err": err,
+        **{key: k1t["sorted"][K1_MAIN][name][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                               "bound_by", "library_ms")},
+    } for name, replaces, err in (
+        ("listmle_fwd", "pldepth_tpu/ops/listmle_pallas.py:111", k1s_fwd_err),
+        ("listmle_bwd", "pldepth_tpu/ops/listmle_pallas.py:121", k1s_bwd_err))] + [{
         "name": "quant_matmul", "route": "cuda", "source": "pldepth_torch/csrc/quant_matmul.cu",
         "replaces": "pldepth_tpu/ops/quant_matmul.py:44",
-        "launches": rec_q["k4_launches_main_path"] + rec_rs["k4_launches_main_path"],
+        "launches": (rec_q["k4_launches_main_path"] + rec_rs["k4_launches_main_path"]
+                     + rec_o["qenc_int8"]["counts"]["quant_matmul"]),
         "max_abs_err": max(rec_q["k4_max_abs_err"], rec_rs["k4_max_abs_err"]),
         "ms": k4t["ms"], "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
         "bound_by": "bytes" if k4t["bytes_ms"] >= k4t["ops_ms"] else "operations",

@@ -1,6 +1,6 @@
-"""Command line of the port: ``python -m pldepth_torch.cli train|eval|zeroshot|predict|serve ...``.
+"""Command line of the port: ``python -m pldepth_torch.cli train|eval|zeroshot|predict|serve|export ...``.
 
-The ``train``, ``eval``, ``zeroshot``, ``predict`` and ``serve`` commands of
+The ``train``, ``eval``, ``zeroshot``, ``predict``, ``serve`` and ``export`` commands of
 ``pldepth_tpu/cli.py`` with the same flag names, defaults and
 ``true``/``false`` booleans, written with argparse, plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain versions of the kernels).
@@ -14,9 +14,12 @@ docs/PARITY.md in ``parity_report.json``). ``eval`` is the test-set report,
 ``zeroshot`` the cross-dataset suite (Ibims, DIODE, Sintel, TUM, DIW).
 ``predict`` and ``serve`` with their default flags serve the int8 graph of
 the ff_effnet family (dense convs on K4, ops/quant_matmul.py), calibrated
-on the first input batch(es), and the BN-folded graph of ff_redweb. Options
-the port does not run yet raise NotImplementedError naming their ROADMAP
-item. The other commands come with later slices (ROADMAP.md queue 1).
+on the first input batch(es), and the BN-folded graph of ff_redweb;
+``export`` writes the float forward with its weights to one artifact
+(serve/export.py) that ``serve --artifact`` runs without model code.
+Options the port does not run yet raise NotImplementedError naming their
+ROADMAP item. The other commands come with later slices (ROADMAP.md queue
+1).
 """
 
 from __future__ import annotations
@@ -150,7 +153,8 @@ def _parser() -> argparse.ArgumentParser:
     sv.add_argument("--model_name", default="ff_effnet")
     sv.add_argument("--load_model_path", default="", help="weights .npz (live model source)")
     sv.add_argument("--artifact", default="",
-                    help="exported artifact (not ported yet: ROADMAP.md queue 1 item 10)")
+                    help="exported .plx artifact (cli export; served without model code: "
+                         "input_size and the batch come from its metadata)")
     sv.add_argument("--watch_dir", required=True)
     sv.add_argument("--out_dir", required=True)
     sv.add_argument("--input_size", default=448, type=int)
@@ -161,6 +165,21 @@ def _parser() -> argparse.ArgumentParser:
                     help="process the current backlog and exit")
     _add_serving_mode_options(sv, "scales calibrate over the first dispatched batches")
     sv.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ex = sub.add_parser("export", help="write the inference forward, weights baked in, "
+                                       "to a torch.export artifact (serve/export.py)")
+    ex.add_argument("--model_name", default="ff_effnet")
+    ex.add_argument("--load_model_path", required=True)
+    ex.add_argument("--out", required=True, help="output artifact path (.plx)")
+    ex.add_argument("--input_size", default=448, type=int)
+    ex.add_argument("--batch_size", default=8, type=int,
+                    help="fixed serving batch; 0 = batch-polymorphic artifact "
+                         "(any batch at call time)")
+    ex.add_argument("--platforms", default="cuda,cpu",
+                    help="comma-separated devices the artifact may be loaded on")
+    ex.add_argument("--bn_fold", default=True, type=_bool,
+                    help="bake BN-folded weights into the artifact (models/bn_fold.py)")
+    ex.add_argument("--device", default="cuda", help="cuda (default) or cpu: where the "
+                                                     "graph is traced")
     return p
 
 
@@ -308,9 +327,19 @@ def serve(args: argparse.Namespace) -> dict:
     if bool(args.load_model_path) == bool(args.artifact):
         raise SystemExit("pass exactly one of --load_model_path / --artifact")
     if args.artifact:
-        raise NotImplementedError(
-            "--artifact (serving an exported model) is not ported yet: ROADMAP.md "
-            "queue 1 item 10 (export)")
+        from pldepth_torch.serve.daemon import artifact_infer
+
+        infer, meta = artifact_infer(args.artifact, args.device)
+        fixed = meta.get("batch_size")
+        batch_size = fixed or args.batch_size
+        # a fixed-batch artifact takes its batch only: tail chunks pad to it
+        pad = (lambda a: pad_to_batch(a, fixed)) if fixed else None
+        n = serve_directory(
+            args.watch_dir, args.out_dir, infer, meta["input_size"], batch_size,
+            pad_batch=pad, save_png=args.save_png, poll_interval=args.poll_interval,
+            once=args.once,
+        )
+        return {"processed": n, "out_dir": args.out_dir}
     trainer, state, mode = _serving_trainer(args)
     predict_fn = trainer.jit_predict(fused=mode)
     if mode == "quant":
@@ -334,6 +363,20 @@ def serve(args: argparse.Namespace) -> dict:
         poll_interval=args.poll_interval, once=args.once,
     )
     return {"processed": n, "out_dir": args.out_dir}
+
+
+def export(args: argparse.Namespace) -> dict:
+    """Write the inference forward of ``--load_model_path``'s weights to
+    ``--out`` (``pldepth_tpu/cli.py export``; serve/export.py)."""
+    from pldepth_torch.serve.export import export_predict
+
+    trainer, state = _loaded_trainer(args)
+    platforms = args.platforms
+    export_predict(trainer, state, args.batch_size, args.out,
+                   platforms=tuple(p.strip() for p in platforms.split(",")),
+                   bn_fold=args.bn_fold)
+    return {"out": args.out, "platforms": platforms, "batch_size": args.batch_size,
+            "input_size": args.input_size}
 
 
 def _make_config(kw: dict):
@@ -533,6 +576,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(json.dumps(serve(args)))
     elif args.command == "train":
         print(json.dumps(train(args)))
+    elif args.command == "export":
+        print(json.dumps(export(args)))
     return 0
 
 

@@ -11,8 +11,10 @@
   makes every conv an int8 site but the head's ``conv1`` and ``conv2``.
 
 ``bn_fold=True`` drops the BNs (eps 1e-3) into biased convs
-(models/bn_fold.py). The sparse ``pixels`` tail is ROADMAP.md queue 1
-item 11.
+(models/bn_fold.py). With ``pixels`` (B, N, 2) full-resolution (row, col)
+both decoders run their last upsample and head only at those pixels
+(ops/sparse_tail.py; skip-concat: window 3, the fused tail off; ReDWeb:
+window 1) and return (B, N) f32 depths; everything before stays dense.
 """
 
 from __future__ import annotations
@@ -24,8 +26,25 @@ from torch import nn
 
 from pldepth_torch.models.layers import Conv, TrainPass
 from pldepth_torch.models.quantize import ConvBNScope
+from pldepth_torch.ops.conv import conv2d_same_nhwc
 from pldepth_torch.ops.fused_tail import fused_upsample2x_head
 from pldepth_torch.ops.resize import upsample2x_bilinear
+from pldepth_torch.ops.sparse_tail import sparse_upsample2x_taps
+
+
+def _head_at(head: Conv, x: torch.Tensor, pixels: torch.Tensor) -> torch.Tensor:
+    """``head(upsample2x_bilinear(x))`` at ``pixels`` only, (B, N) f32: the
+    head's window of bilinear taps around each pixel, convolved VALID (the
+    centre of the JAX package's SAME conv of the patch)."""
+    k = head.weight.shape[-1]
+    tap = sparse_upsample2x_taps(x, pixels, window=k)  # (B, N, k, k, C)
+    b, n = tap.shape[:2]
+    dt = head.dtype
+    y = conv2d_same_nhwc(tap.reshape(b * n, k, k, tap.shape[-1]).to(dt), head.weight.to(dt),
+                         padding=0)
+    if head.bias is not None:
+        y = y + head.bias.to(dt)
+    return y.reshape(b, n).to(torch.float32)
 
 
 class SkipConcatDecoder(ConvBNScope):
@@ -48,7 +67,8 @@ class SkipConcatDecoder(ConvBNScope):
         return torch.relu(self.conv_bn(x, f"conv{idx}", train))
 
     def forward(self, top: torch.Tensor, taps: Dict[str, torch.Tensor],
-                train: Optional[TrainPass] = None) -> torch.Tensor:
+                train: Optional[TrainPass] = None,
+                pixels: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.fold and train is not None:
             raise ValueError("bn_fold is an inference-only mode (train=False)")
         x = top
@@ -57,6 +77,8 @@ class SkipConcatDecoder(ConvBNScope):
             x = torch.cat([x, taps[tap].to(x.dtype)], dim=-1)
         x = upsample2x_bilinear(self._conv_bn_relu(x, 3, train))  # -> 1/2
         x = self._conv_bn_relu(x.contiguous(), 4, train)
+        if pixels is not None:
+            return _head_at(self.head, x, pixels)
         if self.fused_tail:
             return fused_upsample2x_head(x, self.head.weight, self.head.bias).to(torch.float32)
         return self.head(upsample2x_bilinear(x).contiguous()).to(torch.float32)
@@ -113,8 +135,11 @@ class AdaptiveOutput(ConvBNScope):
         self.conv1 = Conv(64, 1, 3, dtype=dtype)
         self.conv2 = Conv(1, 1, 1, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                pixels: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = self.conv1(torch.relu(self.conv_bn(x, "conv0", train)))
+        if pixels is not None:
+            return _head_at(self.conv2, x, pixels)
         return self.conv2(upsample2x_bilinear(x).contiguous()).to(torch.float32)
 
 
@@ -139,10 +164,7 @@ class ReDWebDecoder(nn.Module):
                 train: Optional[TrainPass] = None, pixels=None) -> torch.Tensor:
         if self.fold and train is not None:
             raise ValueError("bn_fold is an inference-only mode (train=False)")
-        if pixels is not None:
-            raise NotImplementedError(
-                "the sparse pixels= tail is not ported yet: ROADMAP.md queue 1 item 11")
         x = upsample2x_bilinear(c5)  # 1/32 -> 1/16
         for i, tap in enumerate(self.TAPS):  # 1/16 -> 1/8 -> 1/4 -> 1/2
             x = getattr(self, f"fusion{i}")(taps[tap], x, train)
-        return self.output(x, train)  # -> 1/1
+        return self.output(x, train, pixels)  # -> 1/1

@@ -10,6 +10,9 @@ batch-statistics BN, and drop-path on the residual blocks at rate
 generator. ``bn_fold=True`` builds the inference graph with BN folded into
 biased convs (models/bn_fold.py); ``quant`` ("int8" or "calib") builds it
 with the quantization sites of models/quantize.py, which implies the fold.
+``qres`` ("int8" or "bf16") trains with every BN(+swish) as one unit whose
+backward reads x̂ compressed (ops/qres.py ``FusedBNAct``, same parameter
+names), and with "int8" the squeeze-excite multiply through ``mul_q8``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from torch import nn
 
 from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass, swish
 from pldepth_torch.models.quantize import make_conv
+from pldepth_torch.ops.qres import FusedBNAct, mul_q8
 
 # (expand_ratio, channels, repeats, stride, kernel) for B0, per stage 1..7.
 _STAGE_DEFS = (
@@ -63,19 +67,35 @@ def round_repeats(repeats: int, depth: float) -> int:
     return int(math.ceil(depth * repeats))
 
 
+def _bn(ch: int, qres, dtype: torch.dtype, act: Optional[str]) -> BatchNorm:
+    """The BN after a conv: ``FusedBNAct`` under ``qres`` (it applies
+    ``act`` itself), else a plain ``BatchNorm``."""
+    return FusedBNAct(ch, act, qres, dtype) if qres else BatchNorm(ch)
+
+
+def _bn_act(bn: BatchNorm, x: torch.Tensor, train: Optional[TrainPass],
+            dtype: torch.dtype, act: Optional[str]) -> torch.Tensor:
+    """``act(bn(x))`` in the compute dtype, the same values either way."""
+    if isinstance(bn, FusedBNAct):
+        return bn(x, train)
+    y = bn(x, train).to(dtype)
+    return swish(y) if act == "swish" else y
+
+
 class SqueezeExcite(nn.Module):
-    def __init__(self, ch: int, reduce_ch: int, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, ch: int, reduce_ch: int, dtype: torch.dtype = torch.bfloat16,
+                 qres=None):
         super().__init__()
         self.reduce = Conv(ch, reduce_ch, 1, dtype=dtype)
         self.expand = Conv(reduce_ch, ch, 1, dtype=dtype)
-        self.dtype = dtype
+        self.dtype, self.qres = dtype, qres
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         se = x.to(torch.float32).mean(dim=(1, 2), keepdim=True)
         se = swish(self.reduce(se.to(self.dtype)))
         se = self.expand(se)
         gate = torch.sigmoid(se.to(torch.float32)).to(x.dtype)
-        return x * gate
+        return mul_q8(x, gate) if self.qres == "int8" else x * gate
 
 
 class MBConv(nn.Module):
@@ -84,7 +104,7 @@ class MBConv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, expand: int, kernel: int,
                  stride: int, se_ratio: float = 0.25, drop_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, bn_fold: bool = False,
-                 quant=False):
+                 quant=False, qres=None):
         super().__init__()
         self.in_ch, self.out_ch, self.expand = in_ch, out_ch, expand
         self.kernel, self.stride = kernel, stride
@@ -95,15 +115,15 @@ class MBConv(nn.Module):
         if expand != 1:
             self.expand_conv = make_conv(quant, dtype, in_ch, ce, 1, bias=fold)
             if not fold:
-                self.expand_bn = BatchNorm(ce)
+                self.expand_bn = _bn(ce, qres, dtype, "swish")
         self.dw_conv = make_conv(quant, dtype, ce, ce, kernel, stride=stride, groups=ce,
                                  bias=fold)
         if not fold:
-            self.dw_bn = BatchNorm(ce)
-        self.se = SqueezeExcite(ce, max(1, int(in_ch * se_ratio)), dtype=dtype)
+            self.dw_bn = _bn(ce, qres, dtype, "swish")
+        self.se = SqueezeExcite(ce, max(1, int(in_ch * se_ratio)), dtype=dtype, qres=qres)
         self.project_conv = make_conv(quant, dtype, ce, out_ch, 1, bias=fold)
         if not fold:
-            self.project_bn = BatchNorm(out_ch)
+            self.project_bn = _bn(out_ch, qres, dtype, None)
 
     @property
     def residual(self) -> bool:
@@ -115,14 +135,14 @@ class MBConv(nn.Module):
         expand_act = None
         if self.expand != 1:
             x = self.expand_conv(x)
-            x = swish(x if self.fold else self.expand_bn(x, train).to(dt))
+            x = swish(x) if self.fold else _bn_act(self.expand_bn, x, train, dt, "swish")
             expand_act = x  # "blockXa_expand_activation" tap point
         x = self.dw_conv(x)
-        x = swish(x if self.fold else self.dw_bn(x, train).to(dt))
+        x = swish(x) if self.fold else _bn_act(self.dw_bn, x, train, dt, "swish")
         x = self.se(x)
         x = self.project_conv(x)
         if not self.fold:
-            x = self.project_bn(x, train).to(dt)
+            x = _bn_act(self.project_bn, x, train, dt, None)
         if self.residual:
             if train is not None and self.drop_rate > 0:
                 # drop-path: one Bernoulli(keep) draw per sample
@@ -139,7 +159,8 @@ class EfficientNetEncoder(nn.Module):
     {"expand_3": 1/4 res, "expand_4": 1/8, "expand_6": 1/16}."""
 
     def __init__(self, variant: str = "b0", dtype: torch.dtype = torch.bfloat16,
-                 drop_connect_rate: float = 0.2, bn_fold: bool = False, quant=False):
+                 drop_connect_rate: float = 0.2, bn_fold: bool = False, quant=False,
+                 qres=None):
         super().__init__()
         self.variant, self.dtype = variant, dtype
         self.fold = fold = bn_fold or bool(quant)
@@ -148,7 +169,7 @@ class EfficientNetEncoder(nn.Module):
         stem_ch = round_filters(32, width)
         self.stem_conv = make_conv(quant, dtype, 3, stem_ch, 3, stride=2, bias=fold)
         if not fold:
-            self.stem_bn = BatchNorm(stem_ch)
+            self.stem_bn = _bn(stem_ch, qres, dtype, "swish")
         self.block_names = []
         self.tap_channels: Dict[str, int] = {}
         in_ch = stem_ch
@@ -161,7 +182,7 @@ class EfficientNetEncoder(nn.Module):
                 self.add_module(name, MBConv(
                     in_ch, out_ch, expand, kernel, stride if i == 0 else 1,
                     drop_rate=drop_connect_rate * len(self.block_names) / total_blocks,
-                    dtype=dtype, bn_fold=bn_fold, quant=quant,
+                    dtype=dtype, bn_fold=bn_fold, quant=quant, qres=qres,
                 ))
                 self.block_names.append(name)
                 if i == 0 and stage_num in DECODER_TAP_STAGES:
@@ -170,10 +191,12 @@ class EfficientNetEncoder(nn.Module):
         self.top_ch = round_filters(1280, width)
         self.top_conv = make_conv(quant, dtype, in_ch, self.top_ch, 1, bias=fold)
         if not fold:
-            self.top_bn = BatchNorm(self.top_ch)
+            self.top_bn = _bn(self.top_ch, qres, dtype, "swish")
 
     def _bn_swish(self, x: torch.Tensor, name: str, train: Optional[TrainPass]):
-        return swish(x if self.fold else getattr(self, name)(x, train).to(self.dtype))
+        if self.fold:
+            return swish(x)
+        return _bn_act(getattr(self, name), x, train, self.dtype, "swish")
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None):
         if self.fold and train is not None:

@@ -9,6 +9,14 @@ and models/quantize.py); ``init_module`` initialises one from a
 ``torch.Generator`` on a device. The weights live in the module, which the
 trainer's state holds. :func:`partition_params` labels parameters for the
 BN-only-trainable encoder.
+
+``remat`` recomputes the encoder in the backward pass
+(``torch.utils.checkpoint``, :func:`remat_encoder`); ``qres`` trains the
+EfficientNet encoder with compressed BN residuals (ops/qres.py). A train
+forward given ``pixels`` returns the depths at those pixels only
+(ops/sparse_tail.py); the ff_effnet forward given ``encoder`` runs that
+serving graph of the encoder without gradient in its place (``qenc``,
+train/trainer.py).
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ import re
 from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from pldepth_torch.core.device import torch_dtype
@@ -27,27 +36,71 @@ from pldepth_torch.models.efficientnet import VARIANTS, EfficientNetEncoder
 from pldepth_torch.models.layers import TrainPass, reset_parameters
 
 
+def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass):
+    """``encoder(x, train)`` under ``torch.utils.checkpoint``: its
+    activations are recomputed in the backward pass instead of kept.
+
+    The recompute must draw the same drop-path masks: they come from the
+    pass's own generator, which ``preserve_rng_state`` does not restore, so
+    each run of the encoder gets a generator set to the state the first
+    run started from; after the first run the pass's generator is where
+    that run left it, as without remat. Only the first run's new BN
+    statistics go into the pass (the recompute's are the same values and
+    are dropped)."""
+    gen = train.gen
+    start = gen.get_state() if gen is not None else None
+    first = True
+
+    def run(x):
+        nonlocal first
+        g = None
+        if gen is not None:
+            g = torch.Generator(device=gen.device)
+            g.set_state(start)
+        inner = TrainPass(gen=g)
+        out = encoder(x, inner)
+        if first:
+            first = False
+            train.new_stats.update(inner.new_stats)
+            if gen is not None:
+                gen.set_state(g.get_state())
+        return out
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 class EffNetFullyFledged(nn.Module):
     """EfficientNet encoder + skip-concat decoder -> (B, H, W, 1) f32 depth
     (descending depth order, as the HR-WSI convention of the reference)."""
 
     def __init__(self, variant: str = "b0", dtype: torch.dtype = torch.bfloat16,
                  fused_tail: bool = True, head_ch: int = 32,
-                 drop_connect_rate: float = 0.2, bn_fold: bool = False, quant=False):
+                 drop_connect_rate: float = 0.2, bn_fold: bool = False, quant=False,
+                 remat: bool = False, qres=None):
         super().__init__()
         self.variant, self.dtype = variant, dtype
         self.fused_tail, self.head_ch = fused_tail, head_ch
+        self.remat = remat
         self.encoder = EfficientNetEncoder(variant, dtype=dtype,
                                            drop_connect_rate=drop_connect_rate,
-                                           bn_fold=bn_fold, quant=quant)
+                                           bn_fold=bn_fold, quant=quant, qres=qres)
         self.decoder = SkipConcatDecoder(
             self.encoder.top_ch, self.encoder.tap_channels, head_ch=head_ch,
             dtype=dtype, fused_tail=fused_tail, bn_fold=bn_fold, quant=quant,
         )
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
-        top, taps = self.encoder(x, train)
-        return self.decoder(top, taps, train)
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                pixels: Optional[torch.Tensor] = None,
+                encoder: Optional[nn.Module] = None) -> torch.Tensor:
+        if encoder is not None:  # qenc: a frozen serving graph, no gradient
+            with torch.no_grad():
+                top, taps = encoder(x)
+        elif self.remat and train is not None:
+            top, taps = remat_encoder(self.encoder, x, train)
+        else:
+            top, taps = self.encoder(x, train)
+        return self.decoder(top, taps, train, pixels)
 
 
 class ReDWebFullyFledged(nn.Module):
@@ -57,9 +110,9 @@ class ReDWebFullyFledged(nn.Module):
 
     def __init__(self, dtype: torch.dtype = torch.bfloat16,
                  stage_blocks: Sequence[int] = (3, 4, 6, 3), c4_tap_block: int = 2,
-                 bn_fold: bool = False, quant=False):
+                 bn_fold: bool = False, quant=False, remat: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.encoder = resnet.ResNet50Encoder(dtype, stage_blocks, c4_tap_block,
                                               bn_fold=bn_fold, quant=quant)
         self.decoder = ReDWebDecoder(resnet.TOP_CH, resnet.TAP_CHANNELS, dtype=dtype,
@@ -67,7 +120,10 @@ class ReDWebFullyFledged(nn.Module):
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
                 pixels=None) -> torch.Tensor:
-        c5, taps = self.encoder(x, train)
+        if self.remat and train is not None:
+            c5, taps = remat_encoder(self.encoder, x, train)
+        else:
+            c5, taps = self.encoder(x, train)
         return self.decoder(c5, taps, train, pixels)
 
 
@@ -87,21 +143,23 @@ class PLDepthModel:
 
 def _effnet(name: str, variant: str):
     def factory(dtype=torch.bfloat16, fused_tail=True, head_ch=32,
-                drop_connect_rate=0.2) -> PLDepthModel:
+                drop_connect_rate=0.2, remat=False, qres=None) -> PLDepthModel:
         return PLDepthModel(
             name,
             lambda **mode: EffNetFullyFledged(variant, dtype, fused_tail, head_ch,
-                                              drop_connect_rate, **mode),
+                                              drop_connect_rate, remat=remat, qres=qres,
+                                              **mode),
             "effnet",
         )
     return factory
 
 
 def _redweb(dtype=torch.bfloat16, fused_tail=True, head_ch=32,
-            drop_connect_rate=0.2) -> PLDepthModel:
+            drop_connect_rate=0.2, remat=False, qres=None) -> PLDepthModel:
     # fused_tail / head_ch / drop_connect_rate are EfficientNet-only;
     # accepted and ignored so the registry's signature stays uniform
-    return PLDepthModel("ff_redweb", lambda **mode: ReDWebFullyFledged(dtype, **mode), "caffe")
+    return PLDepthModel("ff_redweb",
+                        lambda **mode: ReDWebFullyFledged(dtype, remat=remat, **mode), "caffe")
 
 
 MODEL_REGISTRY: Dict[str, Callable[..., PLDepthModel]] = {
@@ -124,11 +182,14 @@ def get_model_type_by_name(model_name: str) -> str:
 
 def get_pl_depth_net(model_name: str, compute_dtype: str = "bfloat16",
                      fused_tail: bool = True, head_ch: int = 32,
-                     drop_connect_rate: float = 0.2) -> PLDepthModel:
+                     drop_connect_rate: float = 0.2, remat: bool = False,
+                     qres=None) -> PLDepthModel:
     get_model_type_by_name(model_name)
+    if qres and "redweb" in model_name:
+        raise ValueError("--qres is implemented for the ff_effnet family")
     return MODEL_REGISTRY[model_name](
         dtype=torch_dtype(compute_dtype), fused_tail=fused_tail, head_ch=head_ch,
-        drop_connect_rate=drop_connect_rate,
+        drop_connect_rate=drop_connect_rate, remat=remat, qres=qres,
     )
 
 

@@ -80,12 +80,15 @@ class QuantConv(nn.Module):
         self.amax: Optional[torch.Tensor] = None  # calibrate mode: max |input| so far
         self._memo = None
 
+    derivations = 0  # times any site made its derived tensors (and K4 pack)
+
     def derived(self):
         """(dequantized OIHW weight in the compute dtype, inv, a_eff), made
         once per value of the buffers, together with :meth:`packed_weight`."""
         key = tuple((t.data_ptr(), t._version) for t in (self.kernel_q, self.w_scale,
                                                           self.a_scale))
         if self._memo is None or self._memo[0] != key:
+            QuantConv.derivations += 1
             with torch.no_grad():
                 w = (self.kernel_q.to(torch.float32) * self.w_scale).to(self.dtype)
                 inv = activation_inv(self.a_scale, self.dtype)

@@ -2,8 +2,9 @@
 
 Watch a directory, run every new image through the depth forward, write
 ``<stem>_depth.npy`` (+ optional png preview) to the output directory. The
-model source is a weights checkpoint (``cli serve --load_model_path``); the
-exported-artifact source is not ported yet (ROADMAP.md queue 1 item 10).
+model source is a weights checkpoint (``cli serve --load_model_path``) or an
+exported artifact (``cli serve --artifact``, :func:`artifact_infer`: no
+model code is imported).
 
 New files are picked up when their size is stable across two polls (a
 half-written upload never reaches the device; in ``once`` mode the two scans
@@ -19,7 +20,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Callable, Dict, Optional, Sequence, Set
+from typing import Callable, Dict, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -122,3 +123,17 @@ def serve_directory(
         if once or (max_polls is not None and polls >= max_polls):
             return processed
         time.sleep(poll_interval)
+
+
+def artifact_infer(path: str, device=None) -> Tuple[Callable[[np.ndarray], np.ndarray], dict]:
+    """(callable, meta) from an exported artifact (serve/export.py, weights
+    baked in) on ``device`` (default ``cuda``): host f32 image batches in,
+    host (B, S, S) f32 depth maps out."""
+    from pldepth_torch.serve.export import load_exported
+
+    call, meta = load_exported(path, device)
+
+    def infer(imgs: np.ndarray) -> np.ndarray:
+        return call(np.asarray(imgs, np.float32)).cpu().numpy()
+
+    return infer, meta

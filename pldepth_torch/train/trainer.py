@@ -20,6 +20,16 @@ The JAX state is an immutable pytree; here the weights live in an
 and its optimizer state in place (no copy of the weights per step) and
 returns a state whose ``step`` has advanced. One device only; multi-GPU
 data parallelism is ROADMAP.md queue 1 item 11.
+
+The single-device training options of the JAX package: ``grad_accum``
+(train/optim.py, optax ``MultiSteps``), ``remat_encoder``
+(models/pldepth_net.py ``remat_encoder``), ``sparse_tail`` (the head at
+the ranked pixels only, ops/sparse_tail.py, and the loss from those scores
+through the sorted K1), ``qres`` (ops/qres.py) and ``qenc``: the frozen
+encoder runs a serving graph without gradient inside the step, the
+BN-folded one ("bf16") or the int8 one of ``prepare_qenc`` ("int8", its
+dense convs on K4 on the card), built once and kept apart from the serving
+caches, which every step clears.
 """
 
 from __future__ import annotations
@@ -47,7 +57,8 @@ from pldepth_torch.models.pldepth_net import (
     freeze_params,
     get_pl_depth_net,
 )
-from pldepth_torch.ops.listmle import pl_ranking_loss
+from pldepth_torch.ops.listmle import pl_ranking_loss, pl_ranking_loss_from_scores
+from pldepth_torch.ops.sparse_tail import pixels_of
 from pldepth_torch.sampling import sample_rankings_batch
 from pldepth_torch.train.optim import AmsGrad, AmsGradState
 from pldepth_torch.train.schedules import build_schedule
@@ -55,10 +66,7 @@ from pldepth_torch.train.schedules import build_schedule
 log = logging.getLogger(__name__)
 
 # training options of the JAX package that later slices port
-_NOT_PORTED_OPTIONS = (
-    ("qres", "item 11"), ("qenc", "item 11"), ("sparse_tail", "item 11"),
-    ("remat_encoder", "item 11"), ("spatial_sharding", "item 11"),
-)
+_NOT_PORTED_OPTIONS = (("spatial_sharding", "item 11"),)
 
 
 def check_ported_options(cfg: ExperimentConfig) -> None:
@@ -68,9 +76,6 @@ def check_ported_options(cfg: ExperimentConfig) -> None:
         if getattr(cfg, name):
             raise NotImplementedError(
                 f"{name}={getattr(cfg, name)!r} is not ported yet: ROADMAP.md queue 1 {item}")
-    if cfg.grad_accum > 1:
-        raise NotImplementedError(
-            "grad_accum > 1 is not ported yet: ROADMAP.md queue 1 item 11")
     if cfg.mesh.model != 1:
         raise NotImplementedError(
             "a mesh model axis (spatial sharding) is not ported yet: ROADMAP.md queue 1 item 11")
@@ -138,11 +143,33 @@ class Trainer:
         check_ported_options(cfg)
         self.model = get_pl_depth_net(
             cfg.model_name, cfg.compute_dtype, fused_tail=cfg.fused_tail,
-            head_ch=cfg.decoder_head_ch,
+            head_ch=cfg.decoder_head_ch, remat=cfg.remat_encoder, qres=cfg.qres or None,
         )
+        if cfg.qenc:
+            if cfg.qenc not in ("bf16", "int8"):
+                raise ValueError(f"qenc must be ''|'bf16'|'int8', got {cfg.qenc!r}")
+            if not cfg.freeze_encoder:
+                raise ValueError("qenc requires freeze_encoder (the probe "
+                                 "serves a FROZEN encoder in the train step)")
+            if cfg.qres:
+                raise ValueError("qenc and qres are mutually exclusive")
+            if "redweb" in cfg.model_name:
+                raise ValueError("qenc is implemented for the ff_effnet family")
+        elif (cfg.pretrained_path and cfg.freeze_encoder
+              and "redweb" not in cfg.model_name and not cfg.qres):
+            log.info(
+                "pretrained frozen encoder detected: --qenc bf16 runs the "
+                "encoder serving-style in the train step (+77% measured at "
+                "the headline config, quality-gated at this premise — "
+                "docs/BENCH.md)")
+        # qenc: (the trained module, its encoder's serving graph), and how
+        # many times that graph was built
+        self._qenc: Optional[Tuple[nn.Module, nn.Module]] = None
+        self.qenc_builds = 0
         self.sampler_name = sampler_name_for_type(cfg.sampling_type)
         self.schedule = build_schedule(cfg, self.steps_per_epoch)
-        self.optimizer = AmsGrad(self.schedule, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps)
+        self.optimizer = AmsGrad(self.schedule, cfg.adam_b1, cfg.adam_b2, cfg.adam_eps,
+                                 every_k=cfg.grad_accum)
         self._jit_predict: Dict[object, Callable] = {}
         # (module, input hw) -> encoder plan; the module is kept to check
         # identity, since a plan holds that module's folded weights
@@ -206,15 +233,24 @@ class Trainer:
 
     def _step(self, state: TrainState, images: torch.Tensor,
               rankings: torch.Tensor) -> Tuple[TrainState, StepMetrics]:
+        cfg = self.cfg
         module = state.model
         params = trainable_params(module)
         self._clear_serving_caches()  # the weights change in place
         x = normalize_images(images, self.model.preprocess)
         train = TrainPass(gen=self._gen(state, "droppath"))
+        kw = {}
+        if cfg.sparse_tail:  # the head at the ranked pixels, scores in rankings order
+            kw["pixels"] = pixels_of(rankings, x.shape[2])
+        if cfg.qenc:
+            kw["encoder"] = self._qenc_encoder(module)
         for p in params:
             p.grad = None
-        pred = module(x, train)
-        loss = pl_ranking_loss(pred, rankings, impl=self.cfg.listmle_impl)
+        pred = module(x, train, **kw)
+        if cfg.sparse_tail:
+            loss = pl_ranking_loss_from_scores(pred, rankings, impl=cfg.listmle_impl)
+        else:
+            loss = pl_ranking_loss(pred, rankings, impl=cfg.listmle_impl)
         loss.backward()
         loss = loss.detach()
         with torch.no_grad():
@@ -229,6 +265,36 @@ class Trainer:
             metrics.done = torch.cuda.Event()
             metrics.done.record()
         return state.replace(step=state.step + 1), metrics
+
+    def _qenc_encoder(self, module: nn.Module) -> nn.Module:
+        """The serving graph of ``module``'s frozen encoder that ``qenc``
+        runs: BN-folded ("bf16", folded at the first step and kept while the
+        state's module is the same: the encoder gets no gradient, so its
+        weights and statistics stay) or int8 (made by ``prepare_qenc`` and
+        kept from then on, as the JAX step captures it)."""
+        if self._qenc is not None and (self._qenc[0] is module or self.cfg.qenc == "int8"):
+            return self._qenc[1]
+        if self.cfg.qenc == "int8":
+            raise RuntimeError(
+                "qenc='int8' needs Trainer.prepare_qenc("
+                "state, calib_images) before the first step")
+        from pldepth_torch.models.bn_fold import fold_module
+
+        folded = self.model.make(bn_fold=True)
+        folded.load_state_dict(fold_module(module), assign=True)
+        self._qenc = (module, folded.encoder.eval())
+        self.qenc_builds += 1
+        return self._qenc[1]
+
+    def prepare_qenc(self, state: TrainState, calib_images) -> None:
+        """qenc='int8' setup: calibrate and pack the encoder's int8 serving
+        graph (``prepare_quant``; the decoder stays float and trains). Must
+        run before the first step."""
+        if self.cfg.qenc != "int8":
+            raise ValueError("prepare_qenc applies to qenc='int8' only")
+        qstate = self.prepare_quant(state, calib_images)
+        self._qenc = (state.model, qstate.model.encoder)
+        self.qenc_builds += 1
 
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
         """One step on an {"image", "gt", "mask"} batch: rankings are

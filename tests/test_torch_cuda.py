@@ -626,3 +626,87 @@ def test_resize_nearest_on_the_card_equals_the_cpu(shape, size, channel_last, cu
     x = torch.from_numpy(np.random.default_rng(0).uniform(size=shape).astype(np.float32))
     got = resize_nearest(x.to(cuda_device), size, channel_last=channel_last)
     assert got.is_cuda and torch.equal(got.cpu(), resize_nearest(x, size, channel_last=channel_last))
+
+
+# -- export and the training options on the card ---------------------------------
+def _step_batch(size=64, batch=2, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"image": rng.uniform(size=(batch, size, size, 3)).astype(np.float32),
+            "gt": rng.uniform(0.1, 1.0, size=(batch, size, size)).astype(np.float32),
+            "mask": np.ones((batch, size, size), np.float32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 0])
+def test_artifact_on_the_card_equals_predict_bnfold(batch, cuda_device, tmp_path):
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.serve.export import export_predict, load_exported
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(ExperimentConfig(model_name="ff_smoke", input_size=64,
+                                       compute_dtype="float32"))
+    state = trainer.init_state()
+    path = str(tmp_path / "m.plx")
+    export_predict(trainer, state, batch, path, bn_fold=True)
+    call, meta = load_exported(path)
+    imgs = _step_batch(batch=3)["image"]
+    n = batch or 3
+    got = call(imgs[:n])
+    assert got.is_cuda and got.shape == (n, 64, 64)
+    want = trainer.predict_bnfold(state, imgs[:n])
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    cpu_call, _ = load_exported(path, "cpu")
+    assert not cpu_call(imgs[:n]).is_cuda
+
+
+@pytest.mark.cuda
+def test_qenc_int8_step_runs_k4_at_every_dense_encoder_site(cuda_device):
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.models.quantize import QuantConv, quant_sites
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.ops import quant_matmul as k4
+    from pldepth_torch.train import Trainer
+
+    cfg = ExperimentConfig(model_name="ff_smoke", input_size=64, batch_size=2,
+                           freeze_encoder=True, qenc="int8")
+    trainer = Trainer(cfg, steps_per_epoch=4)
+    state = trainer.init_state()
+    batch = _step_batch()
+    with pytest.raises(RuntimeError, match="prepare_qenc"):
+        trainer.train_step(state, batch)
+    trainer.prepare_qenc(state, batch["image"])
+    enc = trainer._qenc[1]
+    dense = sum(m.groups == 1 for m in quant_sites(enc).values())
+    enc0 = {k: v.clone() for k, v in state.model.encoder.state_dict().items()}
+    builds, fwd = QuantConv.derivations, k1.ranking_loss_fwd.launches
+    before = k4.quant_matmul.launches
+    for _ in range(3):
+        state, m = trainer.train_step(state, batch)
+        assert bool(m.finite)
+    torch.cuda.synchronize()
+    assert k4.quant_matmul.launches - before == 3 * dense > 0
+    assert QuantConv.derivations - builds == len(quant_sites(enc))  # packed once
+    assert k1.ranking_loss_fwd.launches - fwd == 3
+    for k, v in state.model.encoder.state_dict().items():
+        assert torch.equal(v, enc0[k]), k
+
+
+@pytest.mark.cuda
+def test_sparse_tail_step_runs_the_sorted_k1(cuda_device):
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.train import Trainer
+
+    cfg = ExperimentConfig(model_name="ff_smoke", input_size=64, batch_size=2,
+                           rankings_per_image=16, ranking_size=5, sparse_tail=True)
+    trainer = Trainer(cfg, steps_per_epoch=4)
+    state = trainer.init_state()
+    names = ("listmle_fwd", "listmle_bwd", "ranking_loss_fwd", "ranking_loss_bwd")
+    before = {n: getattr(k1, n).launches for n in names}
+    for _ in range(2):
+        state, m = trainer.train_step(state, _step_batch())
+        assert bool(m.finite)
+    torch.cuda.synchronize()
+    got = {n: getattr(k1, n).launches - before[n] for n in names}
+    assert got == {"listmle_fwd": 2, "listmle_bwd": 2, "ranking_loss_fwd": 0,
+                   "ranking_loss_bwd": 0}

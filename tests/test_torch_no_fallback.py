@@ -100,6 +100,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     ("../data/packed.py", "build_native"),
     ("../data/packed.py", "_load_lib"),
     ("../data/packed.py", "NativePackedIterator"),
+    ("qres.py", "BnActTrain"),
+    ("qres.py", "MulQ8"),
+    ("sparse_tail.py", "sparse_upsample2x_taps"),
+    ("../models/pldepth_net.py", "remat_encoder"),
+    ("../serve/export.py", "export_predict"),
+    ("../serve/export.py", "load_exported"),
+    ("../serve/daemon.py", "artifact_infer"),
 ])
 def test_kernel_wrapper_has_no_fallback_path(module, fn):
     path = os.path.join(REPO, "pldepth_torch", "ops", module)
@@ -192,3 +199,40 @@ def test_chip_smoke_fails_alone(tmp_path):
     r = _smoke(tmp_path)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_export_module_imports_no_model_code():
+    """serve/export.py loads artifacts with torch, json and numpy alone: at
+    import it pulls in nothing of pldepth_torch (the model code comes in
+    only inside export_predict)."""
+    path = os.path.join(REPO, "pldepth_torch", "serve", "export.py")
+    mods = {m.split(".")[0] for m in _import_time_imports(path)}
+    assert mods <= {"__future__", "io", "json", "logging", "os", "typing", "numpy", "torch"}, mods
+    code = ("import sys; import pldepth_torch.serve.export; "
+            "print(sorted(m for m in sys.modules if m.startswith('pldepth_torch')))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == str(["pldepth_torch", "pldepth_torch.serve",
+                                    "pldepth_torch.serve.export"])
+
+
+def test_artifact_loading_and_qenc_raise_without_a_card(monkeypatch, tmp_path):
+    """An artifact loads on the card unless the CPU is asked for, and a
+    qenc int8 step never swaps its missing int8 graph for the float one."""
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.serve.export import export_predict, load_exported
+    from pldepth_torch.train import Trainer
+
+    tr = Trainer(ExperimentConfig(model_name="ff_smoke", input_size=32), device="cpu")
+    state = tr.init_state()
+    path = str(tmp_path / "m.plx")
+    export_predict(tr, state, 1, path, bn_fold=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_exported(path)
+    assert load_exported(path, "cpu")[1]["batch_size"] == 1
+    qtr = Trainer(ExperimentConfig(model_name="ff_smoke", input_size=32, qenc="int8",
+                                   freeze_encoder=True), device="cpu")
+    with pytest.raises(RuntimeError, match="prepare_qenc"):
+        qtr._qenc_encoder(qtr.init_state().model)

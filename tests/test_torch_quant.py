@@ -434,10 +434,20 @@ def test_cli_serve_once_serves_backlog_and_quarantines(weights, capsys):
 
 
 def test_cli_serve_artifact_names_its_roadmap_item(weights):
+    """``--artifact`` serves the port's exported artifacts
+    (tests/test_torch_export.py); an artifact of the JAX package (StableHLO
+    after the same header) is refused by name, before any file is read."""
     root, _, _ = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        _port_cli("serve", "--artifact", str(root / "model.plx"), "--watch_dir",
+    meta = json.dumps({"version": 1, "model_name": "ff_smoke", "input_size": SIZE,
+                       "batch_size": 2, "platforms": ["tpu", "cpu"],
+                       "input_range": "[0,1]", "bn_fold": True}).encode()
+    path = root / "jax_model.plx"
+    path.write_bytes(b"PLDEPTH_EXPORT\x00" + len(meta).to_bytes(4, "little") + meta
+                     + b"ML\xefR stablehlo")
+    with pytest.raises(ValueError, match="JAX"):
+        _port_cli("serve", "--artifact", str(path), "--watch_dir",
                   str(root / "w2"), "--out_dir", str(root / "o2"))
+    assert not os.path.exists(root / "o2")
 
 
 def _mean_infer(imgs):

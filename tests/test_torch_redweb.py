@@ -315,8 +315,42 @@ def test_bnfold_matches_jax_per_scope_eps(jref):
 
 
 def test_sparse_tail_names_its_roadmap_item(jref):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-        jref["model"](torch.from_numpy(jref["x"]), pixels=torch.zeros(B, 3, 2))
+    """The sparse tail (``pixels=``, window 1 with the 1x1 head): scores at
+    the ranked pixels equal the JAX train forward's map there (rel 1e-4);
+    the loss from those scores and every gradient of the step are held to
+    the JAX graph in float64 as the dense step is (per tensor 1e-2, over
+    all 2e-3)."""
+    from pldepth_torch.ops.listmle import pl_ranking_loss_from_scores
+    from pldepth_torch.ops.sparse_tail import pixels_of
+
+    model = jref["model"]
+    rankings = torch.from_numpy(jref["rankings"])
+    for p in model.parameters():
+        p.grad = None
+    train = TrainPass()
+    scores = model(torch.from_numpy(jref["x"]), train, pixels=pixels_of(rankings, S))
+    loss = pl_ranking_loss_from_scores(scores, rankings, impl="xla")
+    loss.backward()
+    flat_idx = jref["rankings"][..., 0].astype(np.int64).reshape(B, -1)
+    want = np.take_along_axis(jref["train"].reshape(B, -1), flat_idx, axis=1)
+    assert scores.shape == (B, RPI * K) and _rel(scores.detach().numpy(), want) < 1e-4
+    assert abs(loss.item() / jref["loss"] - 1) < 1e-5
+    grads = {flax_key(n, p.dim()): p.grad.numpy() for n, p in model.named_parameters()}
+    for key in grads:
+        if key.endswith("/kernel"):
+            grads[key] = grads[key].transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    gmax = max(np.abs(g).max() for g in jref["grads"].values())
+    fro = lambda a, b: np.linalg.norm(a - b) / np.linalg.norm(b)  # noqa: E731
+    live = [k for k in grads if not _zero_by_construction(k)]
+    for key in grads:
+        if _zero_by_construction(key):
+            assert np.abs(grads[key]).max() <= 1e-5 * gmax, key
+        else:
+            assert fro(grads[key], jref["grads"][key]) <= 1e-2, key
+    assert fro(np.concatenate([grads[k].ravel() for k in live]),
+               np.concatenate([jref["grads"][k].ravel() for k in live])) <= 2e-3
+    for p in model.parameters():
+        p.grad = None
 
 
 # ------------------------------------------------------------ int8 graph --
