@@ -28,7 +28,7 @@ Phases (any failure exits non-zero):
   5. K1: the sorted ListMLE NLL (forward and backward) against its plain
      PyTorch version in f32 at K in {3, 5, 25, 128, 500} x N in {1, 257,
      3200}, at every (N, K) the training phases give it (read from their
-     configs), and on a list whose scores spread by more than 87; the fused
+     configs; phase 16's gate and cli active steps too), and on a list whose scores spread by more than 87; the fused
      ranking loss (gather, label sort, NLL, mean; the gradient map) against
      ranking_loss_plain at the same (N, K), K = 1 and 12800 lists of K 10 on
      448^2 maps, clean (ties, collisions, ragged N) and with faults (NaN
@@ -152,6 +152,27 @@ Phases (any failure exits non-zero):
      of the dense run's; qres peak int8 < bf16 < off; qenc int8 one K4
      launch a step at every dense int8 encoder site and each site's pack
      built once; qenc's encoder bit-equal after its steps.
+ 16. the quant metric gate, active learning and the small commands, on
+     scenes at 448^2 made once beforehand by spawned workers (the runs
+     measure no scene synthesis): (a) pldepth_torch/tools/quant_metric_gate.py
+     for ff_effnet and ff_redweb, each trained in-process (80 resident steps
+     at batch 8) and evaluated on 104 held-out scenes, calibrated on 16:
+     K1 one fused forward and backward a step, K4 38 / 96 launches a int8
+     forward (6 / 42 window reads, no im2col_same), finite ordinal error
+     and WHDR on >= 100 images; the metric rows and verdicts are printed,
+     not gated; (b) cli active from configs/ff_effnet_448.json at batch
+     32, 80 scenes, 2 rounds, split 32, one pretrain epoch, with
+     --data_resident true and false: every pool row acquired once a round,
+     (N, 204, 5, 2) lists depth-descending inside the image with gt labels,
+     finite losses, K1 launches == fixed-ranking + pretrain steps,
+     weights.npz, the JAX history keys, tile_hausdorff_batch on the card
+     equal to numpy on 8 of the round's edge-map pairs; seconds per
+     acquired image (predict as device time, host Canny, Hausdorff,
+     oracle), HtoD MB per predict batch on each path (resident < 1 MB), ms
+     a fixed-ranking step, peak memory; (c) cli chi2 at sampling types 1
+     and 3: finite, info_score below purely_masked; (d) cli dump of 32
+     scenes as jpg and npz: (32, 100, 5, 2) read back, depths = gt at the
+     indices, the npz images = the scenes' u8 images.
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -506,13 +527,19 @@ def k1_path_shapes():
     """(N, K) of the K1 calls of the training phases: batch x rankings per
     image (train steps) and batch x val rankings per image (validation), for
     phase 6 (ff_effnet at BATCH_TRAIN) and phase 11 (ff_redweb at its
-    config's batch through fit, and at BATCH_TRAIN in its timed steps)."""
+    config's batch through fit, and at BATCH_TRAIN in its timed steps); and
+    phase 16's: the gate's training steps, and cli active's fixed-ranking
+    steps (ACTIVE_SPLIT^2 // K lists an image; its pretrain fit is phase 6's
+    shape)."""
     shapes = set()
     for config, batches in ((EFFNET_CONFIG, (BATCH_TRAIN,)), (REDWEB_CONFIG, (None, BATCH_TRAIN))):
         cfg = load_config(config)
         for b in batches:
             b = b or cfg.batch_size
             shapes |= {(b * r, cfg.ranking_size) for r in (cfg.rankings_per_image, cfg.val_rpi)}
+    k = load_config(EFFNET_CONFIG).ranking_size
+    shapes |= {(GATE_TRAIN_BATCH * GATE_RPI, GATE_K),
+               (ACTIVE_BATCH * (ACTIVE_SPLIT ** 2 // k), k)}
     return sorted(shapes)
 
 
@@ -2409,7 +2436,7 @@ CHAIN_LOSS_RTOL, CHAIN_UPDATE_RTOL = 1e-2, 0.25
 
 
 def scene_sample(index: int, size: int, seed: int):
-    """One ``scenes`` sample (a spawned worker's job in phase 14)."""
+    """One ``scenes`` sample (a spawned worker's job in phases 14 and 16)."""
     import cv2
 
     from pldepth_torch.data.scenes import generate_scene
@@ -2419,11 +2446,12 @@ def scene_sample(index: int, size: int, seed: int):
     return {k: s[k] for k in ("image", "gt", "mask")}
 
 
-def scenes_cached(n: int, size: int, seed: int):
-    """``get_dataset("scenes", size=n, seed=seed, target_size=size)``, every
-    sample made once in parallel (spawned workers: this process has CUDA
-    and threads) and kept in host memory; two samples checked against the
-    dataset's own loader."""
+def scenes_cached(specs, size: int):
+    """``get_dataset("scenes", size=n, seed=seed, target_size=size)`` for each
+    (n, seed) of ``specs``, every sample made once in parallel (spawned
+    workers: this process has CUDA and threads) and kept in host memory;
+    the first and last sample of each set checked against the dataset's own
+    loader. Returns ({(size, seed): dataset}, workers)."""
     import dataclasses
     from concurrent.futures import ProcessPoolExecutor
     from multiprocessing import get_context
@@ -2432,20 +2460,26 @@ def scenes_cached(n: int, size: int, seed: int):
 
     from pldepth_torch.data.datasets import get_dataset
 
-    ds = get_dataset("scenes", size=n, seed=seed, target_size=size)
+    jobs = [(i, seed) for n, seed in specs for i in range(n)]
     workers = max(1, min(8, (os.cpu_count() or 1)))
     t0 = time.perf_counter()
     with ProcessPoolExecutor(workers, mp_context=get_context("spawn")) as pool:
-        results = pool.map(scene_sample, range(n), [size] * n, [seed] * n, chunksize=8)
+        results = pool.map(scene_sample, [i for i, _ in jobs], [size] * len(jobs),
+                           [seed for _, seed in jobs], chunksize=8)
         items = [next(results)]
         first_s = time.perf_counter() - t0
         items += list(results)
-    log(f"scenes: the first of {n} back from a worker after {first_s:.1f} s, all after "
-        f"{time.perf_counter() - t0:.1f} s")
-    for i in (0, n - 1):
-        if any(not np.array_equal(items[i][k], v) for k, v in ds[i].items()):
-            fail(f"scene {i} made by a worker differs from the dataset's own")
-    return dataclasses.replace(ds, loader=items.__getitem__), workers
+    log(f"scenes: the first of {len(jobs)} ({specs} at {size}^2) back from a worker after "
+        f"{first_s:.1f} s, all after {time.perf_counter() - t0:.1f} s")
+    out, k = {}, 0
+    for n, seed in specs:
+        ds = get_dataset("scenes", size=n, seed=seed, target_size=size)
+        mine, k = items[k: k + n], k + n
+        for i in (0, n - 1):
+            if any(not np.array_equal(mine[i][key], v) for key, v in ds[i].items()):
+                fail(f"scene {i} of seed {seed} made by a worker differs from the dataset's own")
+        out[(size, seed)] = dataclasses.replace(ds, loader=mine.__getitem__)
+    return out, workers
 
 
 def feed_window(fn, n: int, steps_per_call: int, unprofiled_ms: float, spin: int = SPIN_KERNELS):
@@ -2517,7 +2551,8 @@ def data_path_phase(smi: str, device="cuda", size=SIZE, batch=BATCH_TRAIN, n=DAT
         input_size=size, batch_size=batch, dataset="scenes", ds_size=n, epochs=DATA_EPOCHS)
     rec = {"n": n, "size": size, "batch": batch, "steps": DATA_STEPS * DATA_EPOCHS}
     t0 = time.perf_counter()
-    ds, rec["scene_workers"] = scenes_cached(n, size, cfg.seed)
+    sets, rec["scene_workers"] = scenes_cached([(n, cfg.seed)], size)
+    ds = sets[(size, cfg.seed)]
     rec["scenes_s"] = time.perf_counter() - t0
     train_ds, val_ds = train_val_split(ds, cfg.val_split_denom)
     rec["train_n"], rec["val_n"] = len(train_ds), len(val_ds)
@@ -3129,6 +3164,456 @@ def options_phase(smi: str) -> dict:
     return runs
 
 
+# phase 16: the quant metric gate, active learning, chi2 and dump -----------------------
+GATE_N, GATE_BATCH, GATE_EPOCHS, GATE_MIN_VALID = 104, 8, 5, 100
+GATE_MODELS = (("ff_effnet", K4_SITES), ("ff_redweb", K4_SITES_REDWEB))
+GATE_TRAIN_N, GATE_CALIB_SEED, GATE_EVAL_SEED = 128, 7, 123  # the JAX tool's protocol
+GATE_TRAIN_BATCH, GATE_RPI, GATE_K = 8, 100, 5  # its training steps (quant_metric_gate._train)
+ACTIVE_N, ACTIVE_ROUNDS, ACTIVE_SPLIT, ACTIVE_BATCH = 80, 2, 32, 32
+DUMP_N = 34  # scenes whose training split (cli's 1/15 validation cut) holds 32
+HAUSDORFF_PAIRS = 8  # edge-map pairs of a round held card vs numpy
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, make):
+    """``obj.<name>`` replaced by ``make(the original)`` for the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+@contextlib.contextmanager
+def cached_scenes(sets):
+    """The commands' loader (``get_dataset("scenes", ...)``) and the quant
+    gate's (``_make_ds("scenes", ...)``) serve the first ``n`` samples of a
+    set of ``sets`` made for their (input size, seed): the same samples,
+    made beforehand, so the runs measure no scene synthesis. Other requests
+    go to their own loaders."""
+    from pldepth_torch.data import datasets as dsets
+    from pldepth_torch.tools import quant_metric_gate as gate
+
+    def cached(size, seed, n):
+        ds = sets.get((size, seed))
+        return ds.take(n) if ds is not None and n is not None and n <= len(ds) else None
+
+    def registry(real):
+        def load(root="", target_size=224, size=None, split="train", seed=0, shuffle=False):
+            ds = cached(target_size, seed, size) if split == "train" else None
+            return ds if ds is not None else real(
+                root=root, target_size=target_size, size=size, split=split, seed=seed,
+                shuffle=shuffle)
+        return load
+
+    def make_ds(real):
+        def load(dataset, n, size, seed):
+            ds = cached(size, seed, n) if dataset == "scenes" else None
+            return ds if ds is not None else real(dataset, n, size, seed)
+        return load
+
+    real = dsets.DATASETS["scenes"]
+    dsets.DATASETS["scenes"] = registry(real)
+    try:
+        with patched(gate, "_make_ds", make_ds):
+            yield
+    finally:
+        dsets.DATASETS["scenes"] = real
+
+
+def stamp(device: str):
+    """A point on the device's timeline: a recorded CUDA event on the card,
+    the host clock on the CPU (rehearsal)."""
+    import torch
+
+    if device != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def stamp_ms(a, b) -> float:
+    return (b - a) * 1e3 if isinstance(a, float) else a.elapsed_time(b)
+
+
+def gate_phase(smi: str, sets, device="cuda", size=SIZE, n=GATE_N, batch=GATE_BATCH,
+               epochs=GATE_EPOCHS, models=GATE_MODELS, min_valid=GATE_MIN_VALID) -> dict:
+    """Phase 16a: the port's quant metric gate (pldepth_torch/tools/
+    quant_metric_gate.py) for each model, trained in-process; gates on K1
+    (one fused forward and backward a training step) and K4 (``sites`` a
+    int8 forward, no patch matrix) and on finite gating metrics over at
+    least ``min_valid`` images. The verdicts are findings, not gates."""
+    import torch
+
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.tools import quant_metric_gate as gate
+
+    cuda = device == "cuda"
+    rec = {}
+    for model, sites in models:
+        k1.ranking_loss_fwd.launches = k1.ranking_loss_bwd.launches = 0
+        k4_counts(reset=True)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with cached_scenes(sets):
+            res = gate.run_gate(model=model, size=size, n=n, batch=batch, dataset="scenes",
+                                weights="train", train_epochs=epochs, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = epochs * (GATE_TRAIN_N // GATE_TRAIN_BATCH)
+        forwards = res["n_images"] // batch
+        launches = {"ranking_loss_fwd": k1.ranking_loss_fwd.launches,
+                    "ranking_loss_bwd": k1.ranking_loss_bwd.launches}
+        log(f"quant gate {model} ({secs:.1f} s): {json.dumps(res)}")
+        if cuda:
+            if launches != {"ranking_loss_fwd": steps, "ranking_loss_bwd": steps}:
+                fail(f"quant gate {model}: K1 launches {launches} over {steps} training steps")
+            k4 = gate_k4_path(f"quant gate {model}", forwards, sites,
+                              K4_WINDOWS if model == "ff_effnet" else K4_WINDOWS_REDWEB)
+        else:
+            k4 = 0
+        for name in ("ordinal_error", "whdr_003"):
+            row = res["metrics"][name]
+            if row["n_valid"] < min_valid or not all(
+                    math.isfinite(row[k]) for k in ("float", "int8", "delta")):
+                fail(f"quant gate {model}: {name} {row} (need finite values on at least "
+                     f"{min_valid} images)")
+        for name, row in res["metrics"].items():
+            if row["n_valid"] and not all(math.isfinite(row[k]) for k in ("float", "int8")):
+                fail(f"quant gate {model}: non-finite {name} {row}")
+        verdict = "PASS" if res["pass"] else "FAIL"
+        failing = [k for k, v in res["metrics"].items() if not v["pass"]]
+        log(f"quant gate {model}: {verdict} (failing budgets: {failing}); K1 {launches}, K4 "
+            f"{k4} over {forwards} int8 forwards; {secs:.1f} s [{smi}]")
+        rec[model] = {"result": res, "s": secs, "k1_launches": launches, "k4_launches": k4,
+                      "train_steps": steps, "int8_forwards": forwards}
+        if cuda:
+            torch.cuda.empty_cache()
+    rec["k1_launches"] = {k: sum(rec[m]["k1_launches"][k] for m, _ in models)
+                          for k in ("ranking_loss_fwd", "ranking_loss_bwd")}
+    rec["k4_launches"] = sum(rec[m]["k4_launches"] for m, _ in models)
+    return rec
+
+
+def check_round(images, rankings, pool, split: int, k: int, what: str) -> None:
+    """A round's arrays: every pool row once, in order; (N, split^2 // k, k,
+    2) lists, depth-descending, inside the image, labelled with gt."""
+    import numpy as np
+
+    n = len(pool)
+    if images.shape[0] != n or any(not np.array_equal(images[i], pool[i]["image"])
+                                   for i in range(n)):
+        fail(f"{what}: the round's images are not the pool's {n} rows in order")
+    want = (n, split * split // k, k, 2)
+    if rankings.shape != want:
+        fail(f"{what}: rankings {rankings.shape}, expected {want}")
+    h, w = pool[0]["gt"].shape
+    flat = rankings[..., 0].astype(np.int64)
+    if (flat < 0).any() or (flat >= h * w).any() or not np.array_equal(flat, rankings[..., 0]):
+        fail(f"{what}: ranking indices outside the {h}x{w} image")
+    if (np.diff(rankings[..., 1], axis=-1) > 0).any():
+        fail(f"{what}: lists are not depth-descending")
+    for i in range(n):
+        if not np.array_equal(rankings[i, ..., 1], pool[i]["gt"].reshape(-1)[flat[i]]):
+            fail(f"{what}: row {i}'s labels are not gt at their pixels")
+
+
+def active_phase(smi: str, sets, device="cuda", size=SIZE, n=ACTIVE_N, batch=ACTIVE_BATCH,
+                 split=ACTIVE_SPLIT, rounds=ACTIVE_ROUNDS, config=None) -> dict:
+    """Phase 16b: cli active on both feeds (--data_resident true / false)
+    from ``config`` (configs/ff_effnet_448.json) at batch ``batch``: gates on
+    the rounds' arrays, the losses, K1 launches, weights.npz, the history
+    keys and the card's Hausdorff against numpy; seconds per acquired image
+    by part, host-to-device MB per predict batch, ms a fixed-ranking step,
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from pldepth_torch.active import acquisition as acq
+    from pldepth_torch.active import loop as al
+    from pldepth_torch.data.pipeline import train_val_split
+    from pldepth_torch.data.resident import build_resident_store
+    from pldepth_torch.ops import listmle_kernel as k1
+    from pldepth_torch.train import Trainer
+
+    from pldepth_torch.core.config import ExperimentConfig
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = config or os.path.join(here, "configs", EFFNET_CONFIG)
+    cuda = device == "cuda"
+    with open(config) as f:
+        base = ExperimentConfig.from_json(f.read())
+    k = base.ranking_size
+    pool, _ = train_val_split(sets[(size, 0)].take(n))
+    pool_items = [pool[i] for i in range(len(pool))]
+    pretrain_steps = len(pool) // batch
+    rec = {"pool": len(pool), "batch": batch, "split": split, "rounds": rounds, "k1_launches": {
+        "ranking_loss_fwd": 0, "ranking_loss_bwd": 0}}
+    pairs = {}
+    for resident in ("true", "false"):
+        name = "resident" if resident == "true" else "streaming"
+        acc = {"canny_s": 0.0, "hausdorff_s": 0.0, "oracle_s": 0.0, "oracle_calls": 0}
+        predict_marks, step_marks, rounds_seen = [], [], []
+
+        def host_timer(key):
+            def make(real):
+                def f(*a, **kw):
+                    t0 = time.perf_counter()
+                    out = real(*a, **kw)
+                    acc[key] += time.perf_counter() - t0
+                    if key == "oracle_s":
+                        acc["oracle_calls"] += 1
+                    return out
+                return f
+            return make
+
+        def hausdorff(real):
+            def f(a, b, sp, dev=None):
+                if name == "resident" and not pairs:
+                    pairs.update(a=a[:HAUSDORFF_PAIRS].copy(), b=b[:HAUSDORFF_PAIRS].copy())
+                t0 = time.perf_counter()
+                out = real(a, b, sp, dev)
+                acc["hausdorff_s"] += time.perf_counter() - t0
+                return out
+            return f
+
+        def batches(real):
+            def gen(*a, **kw):
+                it = real(*a, **kw)
+                while True:
+                    e0 = stamp(device)
+                    try:
+                        item = next(it)
+                    except StopIteration:
+                        return
+                    predict_marks.append((e0, stamp(device)))
+                    yield item
+            return gen
+
+        def fixed_step(real):
+            def step(self, state, b):
+                e0 = stamp(device)
+                out = real(self, state, b)
+                step_marks.append((e0, stamp(device)))
+                return out
+            return step
+
+        def round_check(real):
+            def rnd(*a, **kw):
+                calls = acc["oracle_calls"]
+                t0 = time.perf_counter()
+                images, rankings, stats = real(*a, **kw)
+                secs = time.perf_counter() - t0
+                what = f"cli active ({name}) round {len(rounds_seen)}"
+                check_round(images, rankings, pool_items, split, k, what)
+                if acc["oracle_calls"] - calls != len(pool):
+                    fail(f"{what}: the oracle drew {acc['oracle_calls'] - calls} times for "
+                         f"{len(pool)} rows")
+                rounds_seen.append({"s": secs, **stats})
+                return images, rankings, stats
+            return rnd
+
+        k1.ranking_loss_fwd.launches = k1.ranking_loss_bwd.launches = 0
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+            for fn in ("input_edge_map", "pred_edge_map"):
+                stack.enter_context(patched(al, fn, host_timer("canny_s")))
+            stack.enter_context(patched(al, "oracle_label", host_timer("oracle_s")))
+            stack.enter_context(patched(al, "tile_hausdorff_batch", hausdorff))
+            stack.enter_context(patched(al, "_stream_batches", batches))
+            stack.enter_context(patched(al, "_resident_batches", batches))
+            stack.enter_context(patched(al, "active_learning_round", round_check))
+            stack.enter_context(patched(Trainer, "train_step_fixed", fixed_step))
+            stack.enter_context(cached_scenes(sets))
+            lines, secs = run_cli([
+                "active", "--config_json", config, "--dataset", "scenes", "--ds_size", str(n),
+                "--batch_size", str(batch), "--input_size", str(size), "--rounds", str(rounds),
+                "--split_num", str(split), "--pretrain_epochs", "1", "--data_resident", resident,
+                "--output_dir", tmp, "--device", device])
+            runs = os.listdir(tmp)
+            if len(runs) != 1 or not os.path.exists(os.path.join(tmp, runs[0], "weights.npz")):
+                fail(f"cli active ({name}) wrote no weights.npz: {runs}")
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        history = json.loads(lines[-1])
+        if list(history) != ["loss", "err", "hd_mean"] or any(
+                len(history[key]) != rounds for key in history):
+            fail(f"cli active ({name}): history {history} lacks the JAX keys or rounds")
+        if not np.all(np.isfinite(history["loss"])) or not np.all(np.isfinite(history["err"])):
+            fail(f"cli active ({name}): non-finite history {history}")
+        if len(rounds_seen) != rounds:
+            fail(f"cli active ({name}): {len(rounds_seen)} rounds run, expected {rounds}")
+        fixed_steps = len(step_marks)
+        if fixed_steps != rounds * (len(pool) // batch):
+            fail(f"cli active ({name}): {fixed_steps} fixed-ranking steps, expected "
+                 f"{rounds * (len(pool) // batch)}")
+        launches = {"ranking_loss_fwd": k1.ranking_loss_fwd.launches,
+                    "ranking_loss_bwd": k1.ranking_loss_bwd.launches}
+        want = fixed_steps + pretrain_steps
+        if cuda and launches != {"ranking_loss_fwd": want, "ranking_loss_bwd": want}:
+            fail(f"cli active ({name}): K1 launches {launches}, expected {want} each "
+                 f"({fixed_steps} fixed-ranking + {pretrain_steps} pretrain steps)")
+        for key in launches:
+            rec["k1_launches"][key] += launches[key]
+        if cuda:
+            torch.cuda.synchronize()
+        predict_ms = [stamp_ms(a, b) for a, b in predict_marks]
+        step_ms = [stamp_ms(a, b) for a, b in step_marks]
+        acquired = rounds * len(pool)
+        round_s = sum(r["s"] for r in rounds_seen)
+        per_image = {"predict_s": sum(predict_ms) / 1e3 / acquired,
+                     "canny_s": acc["canny_s"] / acquired,
+                     "hausdorff_s": acc["hausdorff_s"] / acquired,
+                     "oracle_s": acc["oracle_s"] / acquired,
+                     "round_s": round_s / acquired}
+        r = {"cli_s": secs, "history": history, "rounds": rounds_seen, "k1_launches": launches,
+             "fixed_steps": fixed_steps, "pretrain_steps": pretrain_steps,
+             "predict_batches": len(predict_ms), "predict_ms_per_batch": float(np.mean(predict_ms)),
+             "s_per_image": per_image, "fixed_step_ms": float(np.median(step_ms)),
+             "fixed_step_ms_all": step_ms, "peak_gb": peak}
+        rec[name] = r
+        log(f"cli active ({name}): {secs:.1f} s; per acquired image (of {acquired}) "
+            f"{ {key: round(v * 1e3, 3) for key, v in per_image.items()} } ms (predict: "
+            f"device time of {len(predict_ms)} batches, {r['predict_ms_per_batch']:.2f} ms "
+            f"each); fixed-ranking step {r['fixed_step_ms']:.2f} ms (device, median of "
+            f"{fixed_steps}); peak {peak:.2f} GB; K1 {launches}; history {history} [{smi}]")
+
+    # the card's Hausdorff on the round's own edge maps, against numpy
+    dist, pts = acq.tile_hausdorff_batch(pairs["a"], pairs["b"], split, device)
+    for i in range(len(pairs["a"])):
+        want_d, want_p = acq.tile_hausdorff(pairs["a"][i], pairs["b"][i], split)
+        if not (np.array_equal(dist[i], want_d) and np.array_equal(pts[i], want_p)):
+            fail(f"tile_hausdorff_batch on {device} differs from numpy on edge-map pair {i}")
+    rec["hausdorff_pairs_equal"] = len(pairs["a"])
+    log(f"tile_hausdorff_batch on {device} equals numpy on {len(pairs['a'])} of the round's "
+        f"edge-map pairs (distances and witnesses)")
+
+    # host-to-device bytes of one predict batch on each path
+    trainer = Trainer(base.replace(input_size=size, batch_size=batch), device=device)
+    state = trainer.init_state()
+    store = build_resident_store(pool, device)
+    imgs = np.stack([pool_items[i]["image"] for i in range(8)])
+    fns = {"streaming": lambda: np.asarray(trainer.jit_predict()(state, imgs)),
+           "resident": lambda: np.asarray(trainer.jit_predict_resident(8)(
+               state, store.arrays["image"], 0))}
+    expect = imgs.nbytes
+    for name, fn in fns.items():
+        ms = cuda_ms(fn, reps=5, warmup=1)
+        seen = []
+        for attempt in range(3):  # a window that lost copies is taken again (phase 14)
+            win = feed_window(fn, 3, 1, ms, SPIN_KERNELS << (2 * attempt))
+            mb = win["htod_mb"]
+            seen.append(round(mb, 4))
+            if name == "resident" or mb * 1e6 >= expect:
+                break
+            log(f"active predict ({name}): a window of HtoD copies short of the batch: "
+                f"{win['htod_events']}")
+        rec[name].update(htod_mb_per_batch=mb, predict_alone_ms=ms,
+                         predict_idle_share=win["idle_share"])
+        log(f"active predict ({name}): {ms:.2f} ms a batch of 8 alone, HtoD {mb:.4f} MB a "
+            f"batch, idle {win['idle_share']:.3f} [{smi}]")
+        if cuda and name == "resident" and mb >= HTOD_RESIDENT_MB:
+            fail(f"resident predict copies {mb:.3f} MB host-to-device a batch (gate < "
+                 f"{HTOD_RESIDENT_MB} MB)")
+        if cuda and name == "streaming" and mb * 1e6 < expect:
+            fail(f"streaming predict: the profiler saw {seen} MB host-to-device a batch in "
+                 f"its windows, less than the batch's {expect / 1e6:.2f} MB")
+    del store, trainer, state
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def chi2_phase(smi: str, device="cuda", config=None, trials=2, batches=4) -> dict:
+    """Phase 16c: cli chi2 at --sampling_type 1 (info_score) and 3
+    (purely_masked): finite results, info_score's mean below."""
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = config or os.path.join(here, "configs", EFFNET_CONFIG)
+    rec = {}
+    for st in (1, 3):
+        lines, secs = run_cli(["chi2", "--config_json", config, "--trials", str(trials),
+                               "--batches_per_trial", str(batches), "--sampling_type", str(st),
+                               "--device", device])
+        rep = json_report(lines, f"cli chi2 --sampling_type {st}")
+        if not (np.all(np.isfinite(rep["trials"])) and math.isfinite(rep["mean"])
+                and math.isfinite(rep["variance"]) and len(rep["trials"]) == trials):
+            fail(f"cli chi2 --sampling_type {st}: {rep}")
+        rec[rep["sampler"]] = {**rep, "s": secs}
+        log(f"cli chi2 {rep['sampler']}: mean {rep['mean']:.4f}, variance "
+            f"{rep['variance']:.3e} over {trials} trials of {batches} batches, {secs:.1f} s")
+    if not rec["info_score"]["mean"] < rec["purely_masked"]["mean"]:
+        fail(f"cli chi2: info_score's mean {rec['info_score']['mean']} is not below "
+             f"purely_masked's {rec['purely_masked']['mean']}")
+    return rec
+
+
+def dump_phase(smi: str, sets, device="cuda", size=SIZE, n=DUMP_N, config=None) -> dict:
+    """Phase 16d: cli dump of a scenes training split as jpg and as npz;
+    read back, depths equal gt at the indices, npz images equal the u8
+    scenes."""
+    import numpy as np
+
+    from pldepth_torch.data.offline import load_offline_rankings
+    from pldepth_torch.data.pipeline import train_val_split
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = config or os.path.join(here, "configs", EFFNET_CONFIG)
+    train, _ = train_val_split(sets[(size, 0)].take(n))
+    items = [train[i] for i in range(len(train))]
+    with open(config) as f:
+        spec = json.load(f)
+    want = (len(items), spec["rankings_per_image"], spec["ranking_size"], 2)
+    rec = {}
+    for fmt in ("jpg", "npz"):
+        with tempfile.TemporaryDirectory() as tmp, cached_scenes(sets):
+            out = os.path.join(tmp, "d")
+            lines, secs = run_cli(["dump", "--config_json", config, "--dataset", "scenes",
+                                   "--ds_size", str(n), "--input_size", str(size), "--out_dir",
+                                   out, "--image_format", fmt, "--device", device])
+            r = load_offline_rankings(out)
+            if r.shape != want:
+                fail(f"cli dump {fmt}: rankings {r.shape}, expected {want}")
+            for i, s in enumerate(items):
+                flat = r[i, ..., 0].astype(np.int64)
+                if not np.array_equal(r[i, ..., 1], s["gt"].reshape(-1)[flat]):
+                    fail(f"cli dump {fmt}: sample {i}'s depths are not gt at the indices")
+            if fmt == "npz":
+                images = np.load(os.path.join(out, "offline_data.npz"))["images"]
+                u8 = np.stack([(np.clip(s["image"], 0, 1) * 255).astype(np.uint8)
+                               for s in items])
+                if not np.array_equal(images, u8):
+                    fail("cli dump npz: the images are not the scenes' u8 images")
+            with open(os.path.join(out, "meta.json")) as f:
+                meta = json.load(f)
+            rec[fmt] = {"s": secs, "shape": list(r.shape), "meta": meta,
+                        "files": len(os.listdir(out))}
+            log(f"cli dump {fmt}: {len(os.listdir(out))} files, rankings {r.shape}, {secs:.1f} s")
+    return rec
+
+
+def phase16(smi: str) -> dict:
+    """Phase 16: the gate (16a), active learning (16b), chi2 (16c), dump
+    (16d) on scenes made once beforehand."""
+    t0 = time.perf_counter()
+    sets, _ = scenes_cached([(GATE_TRAIN_N, 0), (GATE_N, GATE_EVAL_SEED),
+                             (2 * GATE_BATCH, GATE_CALIB_SEED)], SIZE)
+    rec = {"scenes_s": time.perf_counter() - t0}
+    rec["gate"] = gate_phase(smi, sets)
+    rec["active"] = active_phase(smi, sets)
+    rec["chi2"] = chi2_phase(smi)
+    rec["dump"] = dump_phase(smi, sets)
+    rec["s"] = time.perf_counter() - t0
+    log(f"phase 16: {rec['s']:.1f} s (scenes {rec['scenes_s']:.1f} s) [{smi}]")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every number here as JSON")
@@ -3375,6 +3860,11 @@ def main() -> int:
 
     mark("15")
 
+    # 16. the quant metric gate, active learning, chi2 and dump -------------------------
+    record["phase16"] = rec16 = phase16(smi)
+
+    mark("16")
+
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",
         "source": "pldepth_torch/csrc/fused_mbconv.cu",
@@ -3393,7 +3883,8 @@ def main() -> int:
         "name": name, "route": "cuda", "source": "pldepth_torch/csrc/listmle.cu",
         "replaces": replaces,
         "launches": (rec_t["launches"][name] + rec_rt["launches"][name]
-                     + rec_d["k1_launches"][name]),
+                     + rec_d["k1_launches"][name] + rec16["gate"]["k1_launches"][name]
+                     + rec16["active"]["k1_launches"][name]),
         "max_abs_err": err,
         **{key: k1t["fused"][K1_MAIN][name][key] for key in ("ms", "plain_ms", "bound_ms",
                                                               "bound_by")},
@@ -3414,7 +3905,8 @@ def main() -> int:
         "name": "quant_matmul", "route": "cuda", "source": "pldepth_torch/csrc/quant_matmul.cu",
         "replaces": "pldepth_tpu/ops/quant_matmul.py:44",
         "launches": (rec_q["k4_launches_main_path"] + rec_rs["k4_launches_main_path"]
-                     + rec_o["qenc_int8"]["counts"]["quant_matmul"]),
+                     + rec_o["qenc_int8"]["counts"]["quant_matmul"]
+                     + rec16["gate"]["k4_launches"]),
         "max_abs_err": max(rec_q["k4_max_abs_err"], rec_rs["k4_max_abs_err"]),
         "ms": k4t["ms"], "plain_ms": k4t["plain_ms"], "bound_ms": k4t["bound_ms"],
         "bound_by": "bytes" if k4t["bytes_ms"] >= k4t["ops_ms"] else "operations",

@@ -1,6 +1,8 @@
-"""Command line of the port: ``python -m pldepth_torch.cli train|eval|zeroshot|predict|serve|export ...``.
+"""Command line of the port: ``python -m pldepth_torch.cli
+train|eval|zeroshot|predict|serve|export|active|dump|chi2 ...``.
 
-The ``train``, ``eval``, ``zeroshot``, ``predict``, ``serve`` and ``export`` commands of
+The ``train``, ``eval``, ``zeroshot``, ``predict``, ``serve``, ``export``,
+``active``, ``dump`` and ``chi2`` commands of
 ``pldepth_tpu/cli.py`` with the same flag names, defaults and
 ``true``/``false`` booleans, written with argparse, plus ``--device``
 (default ``cuda``; ``cpu`` runs the plain versions of the kernels).
@@ -17,6 +19,10 @@ the ff_effnet family (dense convs on K4, ops/quant_matmul.py), calibrated
 on the first input batch(es), and the BN-folded graph of ff_redweb;
 ``export`` writes the float forward with its weights to one artifact
 (serve/export.py) that ``serve --artifact`` runs without model code.
+``active`` runs the active-learning rounds (active/loop.py) after loading
+or pretraining weights, ``dump`` writes sampled (image, rankings) data
+(data/offline.py), ``chi2`` the samplers' chi^2 diagnostic
+(diagnostics/chi2.py).
 Options the port does not run yet raise NotImplementedError naming their
 ROADMAP item. The other commands come with later slices (ROADMAP.md queue
 1).
@@ -57,7 +63,8 @@ def _add_train_options(tr: argparse.ArgumentParser) -> None:
     """The reference flag set (pldepth/PLDepth.py:28-46) and the JAX
     package's extensions, names and defaults as in ``pldepth_tpu/cli.py``."""
     a = tr.add_argument
-    a("--model_name", default="ff_effnet", choices=_MODELS)
+    # any case resolves to the listed name, as click.Choice(case_sensitive=False)
+    a("--model_name", default="ff_effnet", type=str.lower, choices=_MODELS)
     a("--epochs", default=50, type=int)
     a("--batch_size", default=4, type=int)
     a("--seed", default=0, type=int)
@@ -113,6 +120,22 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pldepth_torch")
     sub = p.add_subparsers(dest="command", required=True)
     _add_train_options(sub.add_parser("train", help="the main training experiment"))
+    ac = sub.add_parser("active", help="active learning (reference "
+                                       "run_scripts/active_PLDepth.py:160-185)")
+    _add_train_options(ac)
+    ac.add_argument("--rounds", default=6, type=int)
+    ac.add_argument("--split_num", default=32, type=int)
+    ac.add_argument("--sigma", default=1.8, type=float)
+    ac.add_argument("--pretrain_epochs", default=0, type=int)
+    du = sub.add_parser("dump", help="offline (image, rankings) dump "
+                                     "(reference active_learning/offline_data.py)")
+    _add_train_options(du)
+    du.add_argument("--out_dir", required=True)
+    du.add_argument("--image_format", default="jpg", choices=["jpg", "npz"])
+    ch = sub.add_parser("chi2", help="sampling chi^2 diagnostic (reference chi2compare.py)")
+    _add_train_options(ch)
+    ch.add_argument("--trials", default=5, type=int)
+    ch.add_argument("--batches_per_trial", default=25, type=int)
     ev = sub.add_parser("eval", help="test-set evaluation (reference test_data_eval.py)")
     ev.add_argument("--model_name", default="ff_effnet")
     ev.add_argument("--load_model_path", required=True)
@@ -517,6 +540,75 @@ def train(args: argparse.Namespace) -> dict:
     return {**out, "weights": weights_path}
 
 
+def active(args: argparse.Namespace) -> dict:
+    """Active learning (reference run_scripts/active_PLDepth.py:160-185):
+    ``--load_model_path`` weights or ``--pretrain_epochs`` of ``fit``, then
+    ``--rounds`` rounds of acquisition and fixed-ranking fit
+    (active/loop.py), ``<run>/weights.npz``; returns the history."""
+    from pldepth_torch.active import run_active_loop
+    from pldepth_torch.data.pipeline import BatchIterator
+    from pldepth_torch.obs.logging import MetricLogger
+    from pldepth_torch.train.checkpoint import load_weights_npz, save_weights_npz
+    from pldepth_torch.train.trainer import Trainer
+
+    cfg = _make_config(vars(args))
+    train_ds, val_ds = _load_data(cfg)
+    # the Trainer checks the training options before any file is written
+    trainer = Trainer(cfg, max(1, len(train_ds) // cfg.batch_size), device=args.device)
+    run_name = time.strftime("%d%m%y-%H%M%S") + "_active"
+    logger = MetricLogger(cfg.output_dir, run_name, cfg.to_dict(), cfg.use_wandb,
+                          cfg.use_tensorboard, cfg.use_mlflow)
+    state = trainer.init_state()
+    if cfg.load_model_path:
+        state = load_weights_npz(cfg.load_model_path, state)
+    elif args.pretrain_epochs:
+        it = BatchIterator(train_ds, cfg.batch_size, seed=cfg.seed)
+        try:
+            state, _ = trainer.fit(state, it, epochs=args.pretrain_epochs)
+        finally:
+            it.close()
+    store = None
+    if cfg.data_resident:
+        from pldepth_torch.data.resident import build_resident_store
+
+        store = build_resident_store(train_ds, trainer.device)
+    state, history = run_active_loop(
+        trainer, state, train_ds, rounds=args.rounds, split=args.split_num,
+        sigma=args.sigma, eval_ds=val_ds if len(val_ds) else None, seed=cfg.seed,
+        logger=logger, store=store,
+    )
+    save_weights_npz(os.path.join(logger.dir, "weights.npz"), state)
+    logger.close()
+    return history
+
+
+def dump(args: argparse.Namespace) -> str:
+    """Offline (image, rankings) dump (reference active_learning/offline_data.py)."""
+    from pldepth_torch.core.config import sampler_name_for_type
+    from pldepth_torch.data.offline import dump_offline_data
+
+    cfg = _make_config(vars(args))
+    train_ds, _ = _load_data(cfg)
+    return dump_offline_data(
+        train_ds, args.out_dir,
+        sampler_name=sampler_name_for_type(cfg.sampling_type),
+        rankings_per_image=cfg.rankings_per_image,
+        ranking_size=cfg.ranking_size,
+        threshold=cfg.equality_threshold,
+        seed=cfg.seed,
+        image_format=args.image_format,
+        device=args.device,
+    )
+
+
+def chi2(args: argparse.Namespace) -> dict:
+    """Sampling chi^2 diagnostic (reference chi2compare.py:27-165)."""
+    from pldepth_torch.diagnostics.chi2 import run_chi2_compare
+
+    return run_chi2_compare(_make_config(vars(args)), trials=args.trials,
+                            batches_per_trial=args.batches_per_trial, device=args.device)
+
+
 def _post_train_eval(cfg, trainer, state, val_ds, logger) -> None:
     """Ordinal error and NDCG@200 on up to 250 val images, an example image
     (reference PLDepth.py:184-209), and with ``--parity_report`` the full
@@ -578,6 +670,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(json.dumps(train(args)))
     elif args.command == "export":
         print(json.dumps(export(args)))
+    elif args.command == "active":
+        print(json.dumps(active(args)))
+    elif args.command == "dump":
+        print(dump(args))
+    elif args.command == "chi2":
+        print(json.dumps(chi2(args), indent=2))
     return 0
 
 

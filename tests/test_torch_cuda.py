@@ -710,3 +710,47 @@ def test_sparse_tail_step_runs_the_sorted_k1(cuda_device):
     got = {n: getattr(k1, n).launches - before[n] for n in names}
     assert got == {"listmle_fwd": 2, "listmle_bwd": 2, "ranking_loss_fwd": 0,
                    "ranking_loss_bwd": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,split,p", [((64, 64), 8, 0.1), ((67, 53), 4, 0.05),
+                                        ((448, 448), 32, 0.08)])
+def test_tile_hausdorff_batch_on_the_card_equals_the_cpu(hw, split, p, cuda_device):
+    """Distances and witnesses bit for bit, ties to the first index (integer
+    offsets tie often), with an empty map in the batch; at 448^2 / split 32
+    the chunk bound splits the batch of 8 (157 MB an image)."""
+    from pldepth_torch.active import acquisition as acq
+
+    rng = np.random.default_rng(5)
+    n = 8 if hw[0] == 448 else 3
+    a = (rng.uniform(size=(n, *hw)) < p).astype(np.uint8) * 255
+    b = (rng.uniform(size=(n, *hw)) < p).astype(np.uint8) * 255
+    a[0] = 0
+    b[1, : hw[0] // 2] = 0
+    want = acq.tile_hausdorff_batch(a, b, split, "cpu")
+    got = acq.tile_hausdorff_batch(a, b, split)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    if hw[0] == 448:
+        np.testing.assert_array_equal(got[0][2], acq.tile_hausdorff(a[2], b[2], split)[0])
+
+
+@pytest.mark.cuda
+def test_jit_predict_resident_on_the_card_equals_predict(cuda_device):
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.data.resident import build_resident_store
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(ExperimentConfig(model_name="ff_smoke", input_size=64,
+                                       compute_dtype="float32"))
+    state = trainer.init_state()
+    store = build_resident_store(SyntheticDepthDataset(6, 64, seed=2))
+    u8 = store.arrays["image"]
+    fn = trainer.jit_predict_resident(4)
+    for start in (0, 2):
+        # the CPU's true division, the one the card's tensor division gives
+        x = (u8[start: start + 4].cpu().to(torch.float32) / 255.0).cuda()
+        got = np.asarray(fn(state, u8, start))
+        np.testing.assert_array_equal(got, trainer.predict(state, x).cpu().numpy())

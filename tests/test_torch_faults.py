@@ -12,7 +12,11 @@ to the reference:
 * F4: a ranking index outside the map gathers as ``jnp.take_along_axis``
   does (a negative index wraps once, one still outside reads NaN and gets
   no gradient), so the loss is NaN and the trainer's finite guard refuses
-  the step, where ``torch.gather`` raised.
+  the step, where ``torch.gather`` raised;
+* F5: ``--model_name`` takes any case and resolves to the listed name in
+  every command of the reference option set (``train``, ``active``,
+  ``dump``, ``chi2``), as ``click.Choice(case_sensitive=False)`` does in
+  ``pldepth_tpu/cli.py:_reference_options``.
 """
 
 import logging
@@ -177,3 +181,24 @@ def test_f4_negative_index_wraps_once_like_jax():
         loss, grad = _port_loss_and_grad(fn, pred, rankings)
         np.testing.assert_allclose(loss, float(j_loss), rtol=1e-6)
         np.testing.assert_allclose(grad, np.asarray(j_grad), rtol=0, atol=1e-6)
+
+
+F5_REQUIRED = {"train": [], "active": [], "dump": ["--out_dir", "x"], "chi2": []}
+
+
+@pytest.mark.parametrize("command", sorted(F5_REQUIRED))
+@pytest.mark.parametrize("given,want", [("FF_EFFNET", "ff_effnet"), ("Ff_Redweb", "ff_redweb")])
+def test_f5_model_name_any_case_like_jax(command, given, want):
+    import click
+
+    from pldepth_torch.cli import _parser
+    from pldepth_tpu.cli import _reference_options
+
+    @click.command()
+    @_reference_options
+    def reference(**kw):
+        return kw["model_name"]
+
+    assert reference.main(["--model_name", given], standalone_mode=False) == want
+    args = _parser().parse_args([command, "--model_name", given, *F5_REQUIRED[command]])
+    assert args.model_name == want

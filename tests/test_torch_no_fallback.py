@@ -74,6 +74,32 @@ def test_data_path_imports_no_optional_library():
     assert r.stdout.strip() == "[]"
 
 
+def test_new_slice_imports_no_optional_library():
+    """Importing active learning, the small commands' modules and the quant
+    gate loads neither cv2 nor PIL: they import them where they use them."""
+    code = ("import sys; import pldepth_torch.active, pldepth_torch.diagnostics.chi2, "
+            "pldepth_torch.data.offline, pldepth_torch.data.ordinal, "
+            "pldepth_torch.data.partial, pldepth_torch.tools.quant_metric_gate, "
+            "pldepth_torch.cli; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & {'cv2', 'scipy', 'PIL', 'h5py'}))")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("command", ["active", "dump", "chi2"])
+def test_cli_active_dump_chi2_raise_without_a_card(monkeypatch, tmp_path, command):
+    from pldepth_torch.cli import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    extra = ["--out_dir", str(tmp_path / "d")] if command == "dump" else []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([command, "--model_name", "ff_smoke", "--dataset", "scenes", "--input_size", "32",
+              "--ds_size", "16", "--output_dir", str(tmp_path), *extra])
+    assert os.listdir(tmp_path) == []  # nothing written before the check
+
+
 def test_entry_points_raise_without_a_card(monkeypatch):
     from pldepth_torch.core.config import ExperimentConfig
     from pldepth_torch.core.device import resolve_device
