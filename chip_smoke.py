@@ -173,6 +173,27 @@ Phases (any failure exits non-zero):
      and 3: finite, info_score below purely_masked; (d) cli dump of 32
      scenes as jpg and npz: (32, 100, 5, 2) read back, depths = gt at the
      indices, the npz images = the scenes' u8 images.
+ 17. --profile and the sinks, sweeps and their analysis, warmup, on
+     synthetic 448^2 images made once beforehand (threads):
+     (a) cli train --profile true --use_tensorboard true from
+     configs/ff_effnet_448.json at batch 32, one epoch on 480 images:
+     exactly 3 fused K1 launches each way in the Chrome trace under
+     <run>/profile, K1 launches of the command = 1 + 3 profiled + fit steps
+     + val batches, weights.npz, the event file where tensorboard imports;
+     trace MB and device ms a traced step; (b) cli sweep --search tpe
+     --num_runs 6 --space base on 16 images a run: every record error-free
+     with a finite test_error, each run's steps as its draw gives them, K1
+     launches = the runs' steps; resumed with --num_runs 7: one more
+     record, the first six lines byte-equal; then --search random
+     --num_runs 2 --space large_rankings (K 25-500 in a 448^2 step):
+     finite, error-free; seconds, peak memory and ms a step of each run;
+     (c) cli analyze on (b)'s state file names the least test_error (plots
+     where matplotlib imports); (d) cli warmup --serve_batch 8 at batch 32
+     in a copy of pldepth_torch (PYTHONPATH) builds the four CUDA
+     libraries and packio, a second warmup builds nothing, and cli train
+     --pack_cache in the copy leaves its build directory unchanged; cold
+     build_s and the first-call seconds. cli convert is not run here (it
+     needs TensorFlow; the CPU tests hold it).
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -530,16 +551,27 @@ def k1_path_shapes():
     config's batch through fit, and at BATCH_TRAIN in its timed steps); and
     phase 16's: the gate's training steps, and cli active's fixed-ranking
     steps (ACTIVE_SPLIT^2 // K lists an image; its pretrain fit is phase 6's
-    shape)."""
+    shape); and every (N, K) that phase 17's sweeps can draw: batch x
+    rankings per image (and x val rankings per image) for each K of the
+    base space, and of the large_rankings space at the config's batch
+    (phases 17a and 17d run phase 6's shapes)."""
+    from pldepth_torch.sweep.search_spaces import SEARCH_SPACES
+
     shapes = set()
     for config, batches in ((EFFNET_CONFIG, (BATCH_TRAIN,)), (REDWEB_CONFIG, (None, BATCH_TRAIN))):
         cfg = load_config(config)
         for b in batches:
             b = b or cfg.batch_size
             shapes |= {(b * r, cfg.ranking_size) for r in (cfg.rankings_per_image, cfg.val_rpi)}
-    k = load_config(EFFNET_CONFIG).ranking_size
+    cfg = load_config(EFFNET_CONFIG)
+    k = cfg.ranking_size
     shapes |= {(GATE_TRAIN_BATCH * GATE_RPI, GATE_K),
                (ACTIVE_BATCH * (ACTIVE_SPLIT ** 2 // k), k)}
+    for space in (SEARCH_SPACES["base"], SEARCH_SPACES["large_rankings"]):
+        batches = space.get("batch_size", {"values": [cfg.batch_size]})["values"]
+        rpis = space["rankings_per_image"]["values"] + [cfg.val_rpi]
+        shapes |= {(b * r, kk) for b in batches for r in rpis
+                   for kk in space["ranking_size"]["values"]}
     return sorted(shapes)
 
 
@@ -3186,12 +3218,12 @@ def patched(obj, name: str, make):
 
 
 @contextlib.contextmanager
-def cached_scenes(sets):
-    """The commands' loader (``get_dataset("scenes", ...)``) and the quant
-    gate's (``_make_ds("scenes", ...)``) serve the first ``n`` samples of a
-    set of ``sets`` made for their (input size, seed): the same samples,
-    made beforehand, so the runs measure no scene synthesis. Other requests
-    go to their own loaders."""
+def cached_sets(sets, name: str = "scenes"):
+    """The commands' loader (``get_dataset(name, ...)``) and the quant
+    gate's (``_make_ds(name, ...)``) serve the first ``n`` samples of a set
+    of ``sets`` made for their (input size, seed): the same samples, made
+    beforehand, so the runs measure no synthesis. Other requests go to
+    their own loaders."""
     from pldepth_torch.data import datasets as dsets
     from pldepth_torch.tools import quant_metric_gate as gate
 
@@ -3209,17 +3241,17 @@ def cached_scenes(sets):
 
     def make_ds(real):
         def load(dataset, n, size, seed):
-            ds = cached(size, seed, n) if dataset == "scenes" else None
+            ds = cached(size, seed, n) if dataset == name else None
             return ds if ds is not None else real(dataset, n, size, seed)
         return load
 
-    real = dsets.DATASETS["scenes"]
-    dsets.DATASETS["scenes"] = registry(real)
+    real = dsets.DATASETS[name]
+    dsets.DATASETS[name] = registry(real)
     try:
         with patched(gate, "_make_ds", make_ds):
             yield
     finally:
-        dsets.DATASETS["scenes"] = real
+        dsets.DATASETS[name] = real
 
 
 def stamp(device: str):
@@ -3258,7 +3290,7 @@ def gate_phase(smi: str, sets, device="cuda", size=SIZE, n=GATE_N, batch=GATE_BA
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with cached_scenes(sets):
+        with cached_sets(sets):
             res = gate.run_gate(model=model, size=size, n=n, batch=batch, dataset="scenes",
                                 weights="train", train_epochs=epochs, device=device)
         if cuda:
@@ -3430,7 +3462,7 @@ def active_phase(smi: str, sets, device="cuda", size=SIZE, n=ACTIVE_N, batch=ACT
             stack.enter_context(patched(al, "_resident_batches", batches))
             stack.enter_context(patched(al, "active_learning_round", round_check))
             stack.enter_context(patched(Trainer, "train_step_fixed", fixed_step))
-            stack.enter_context(cached_scenes(sets))
+            stack.enter_context(cached_sets(sets))
             lines, secs = run_cli([
                 "active", "--config_json", config, "--dataset", "scenes", "--ds_size", str(n),
                 "--batch_size", str(batch), "--input_size", str(size), "--rounds", str(rounds),
@@ -3572,7 +3604,7 @@ def dump_phase(smi: str, sets, device="cuda", size=SIZE, n=DUMP_N, config=None) 
     want = (len(items), spec["rankings_per_image"], spec["ranking_size"], 2)
     rec = {}
     for fmt in ("jpg", "npz"):
-        with tempfile.TemporaryDirectory() as tmp, cached_scenes(sets):
+        with tempfile.TemporaryDirectory() as tmp, cached_sets(sets):
             out = os.path.join(tmp, "d")
             lines, secs = run_cli(["dump", "--config_json", config, "--dataset", "scenes",
                                    "--ds_size", str(n), "--input_size", str(size), "--out_dir",
@@ -3611,6 +3643,379 @@ def phase16(smi: str) -> dict:
     rec["dump"] = dump_phase(smi, sets)
     rec["s"] = time.perf_counter() - t0
     log(f"phase 16: {rec['s']:.1f} s (scenes {rec['scenes_s']:.1f} s) [{smi}]")
+    return rec
+
+
+# phase 17: --profile and the sinks, sweeps and trial analysis, warmup ------------------
+# 17a: cli train --profile true on PROFILE_N synthetic images at 448^2 (1/15 validation:
+# one val batch of 32; 14 train steps at batch 32: 1 + 3 profiled, 10 through fit)
+PROFILE_N, PROFILE_BATCH, PROFILE_STEPS = 480, 32, 3
+# 17b: sweep runs on SWEEP_N images (15 train, 1 val); the base space draws batch
+# 4 / 6 / 8 and 10-30 epochs: 10 to 90 steps a run
+SWEEP_N, SWEEP_TPE_RUNS, SWEEP_LARGE_RUNS, SWEEP_LARGE_EPOCHS = 16, 6, 2, 2
+WARMUP_N, WARMUP_BATCH, WARMUP_SERVE = 40, 32, 8  # 17d: cli train after warmup: 1 step
+WARMUP_BUILT = sorted(["banded_mbconv", "fused_mbconv", "listmle", "quant_matmul", "packio"])
+
+
+def synthetic_cached(n: int, size: int, seed: int = 0):
+    """``get_dataset("synthetic", size=n, seed=seed, target_size=size)`` with
+    every sample made once and kept in host memory: each sample draws from
+    its own generator, and numpy and torch release the interpreter lock in
+    the work, so threads make them side by side (processes would pickle
+    4 MB a sample back); the first and last checked against a second
+    call of the dataset's loader."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from pldepth_torch.data.datasets import get_dataset
+
+    t0 = time.perf_counter()
+    ds = get_dataset("synthetic", size=n, seed=seed, target_size=size)
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as pool:
+        items = list(pool.map(ds.loader, range(n)))
+    for i in (0, n - 1):
+        if any(not np.array_equal(items[i][k], v) for k, v in ds[i].items()):
+            fail(f"synthetic sample {i} made by a worker differs from the dataset's own")
+    log(f"synthetic: {n} samples at {size}^2 made in {time.perf_counter() - t0:.1f} s")
+    return dataclasses.replace(ds, loader=items.__getitem__)
+
+
+def trace_kernels(logdir: str):
+    """(kernel launches by name, as ``kernel_name`` gives them, of the one
+    Chrome trace under ``logdir``; its device ms; its size in MB)."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts, dev_us = {}, 0.0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e["name"]
+        if not name.startswith("_Z"):  # demangled: "void ns::k1_fwd_thread_kernel<5, 1>(...)"
+            m = re.search(r"(\w+_kernel)(<[^()]*?>)?\(", name)
+            name = m.group(1) + (m.group(2) or "") if m else name[:60]
+        else:
+            name = kernel_name(name)
+        counts[name] = counts.get(name, 0) + 1
+        dev_us += float(e.get("dur", 0.0))
+    return counts, dev_us / 1e3, os.path.getsize(path) / 1e6
+
+
+def k1_trace_counts(counts):
+    """Fused (template MODE 1) and sorted (MODE 0) K1 launches of a trace."""
+    out = {"ranking_loss_fwd": 0, "ranking_loss_bwd": 0, "listmle_fwd": 0, "listmle_bwd": 0}
+    for name, c in counts.items():
+        m = re.match(r"k1_(fwd|bwd)_(thread|warp)_kernel<(?:\d+, )?(\d)>", name)
+        if m:
+            key = ("ranking_loss_" if m.group(3) == "1" else "listmle_") + m.group(1)
+            out[key] += c
+    return out
+
+
+def fused_k1_counts():
+    c = k_counts()
+    return {n: c[n] for n in ("ranking_loss_fwd", "ranking_loss_bwd")}
+
+
+def profile_phase(smi: str, ds, device="cuda", size=SIZE, n=PROFILE_N, batch=PROFILE_BATCH,
+                  config=None) -> dict:
+    """Phase 17a: cli train --profile true --use_tensorboard true, one
+    epoch: exactly PROFILE_STEPS fused K1 launches each way in the trace,
+    K1 launches of the command = 1 + PROFILE_STEPS + fit steps + val
+    batches (backward without the val batches), weights.npz, the event file
+    where TensorBoard imports; trace MB, device ms a traced step."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = config or os.path.join(here, "configs", EFFNET_CONFIG)
+    tb = import_state("tensorboard")
+    rec = {"tensorboard": tb}
+    n_val = n // 15
+    steps = (n - n_val) // batch
+    val_batches = n_val // batch
+    with tempfile.TemporaryDirectory() as tmp, cached_sets({(size, 0): ds}, "synthetic"):
+        reset_counts()
+        lines, rec["cli_s"] = run_cli([
+            "train", "--config_json", config, "--dataset", "synthetic", "--ds_size", str(n),
+            "--batch_size", str(batch), "--epochs", "1", "--input_size", str(size),
+            "--profile", "true", "--use_tensorboard", "true", "--output_dir", tmp,
+            "--run_name", "prof", "--device", device])
+        rec["k1_launches"] = launches = fused_k1_counts()
+        run = os.path.join(tmp, "prof")
+        out = json.loads(lines[-1])
+        if out["step"] != steps:
+            fail(f"cli train --profile ended at step {out['step']}, expected {steps}")
+        want = {"ranking_loss_fwd": steps + val_batches, "ranking_loss_bwd": steps}
+        if device == "cuda" and launches != want:
+            fail(f"cli train --profile: K1 launches {launches}, expected {want} (1 + "
+                 f"{PROFILE_STEPS} profiled + {steps - 1 - PROFILE_STEPS} fit steps, "
+                 f"{val_batches} val batches)")
+        if not os.path.exists(os.path.join(run, "weights.npz")):
+            fail("cli train --profile wrote no weights.npz")
+        counts, dev_ms, mb = trace_kernels(os.path.join(run, "profile"))
+        rec["trace_mb"], rec["trace_kernels"] = mb, sum(counts.values())
+        rec["device_ms_per_step"] = dev_ms / PROFILE_STEPS
+        rec["trace_k1"] = traced = k1_trace_counts(counts)
+        if device == "cuda" and traced != {"ranking_loss_fwd": PROFILE_STEPS,
+                                           "ranking_loss_bwd": PROFILE_STEPS,
+                                           "listmle_fwd": 0, "listmle_bwd": 0}:
+            fail(f"the profiled window holds K1 launches {traced}, expected {PROFILE_STEPS} "
+                 f"fused each way (kernels {sorted(counts)[:12]} ...)")
+        events = [f for f in os.listdir(os.path.join(run, "tb"))
+                  if f.startswith("events.")] if os.path.isdir(os.path.join(run, "tb")) else []
+        rec["tb_event_files"] = len(events)
+        if not tb.startswith("not") and not events:
+            fail("cli train --use_tensorboard true wrote no event file with tensorboard present")
+        if tb.startswith("not"):
+            log(f"tensorboard {tb}: the sink logged its warning and the run stayed local-only")
+    log(f"cli train --profile: {rec['cli_s']:.1f} s, trace {mb:.1f} MB with "
+        f"{rec['trace_kernels']} kernels, {rec['device_ms_per_step']:.2f} device ms a traced "
+        f"step, K1 in the window {traced}, K1 of the command {launches}, "
+        f"{rec['tb_event_files']} event file(s) [{smi}]")
+    return rec
+
+
+def fit_meter(runs: list, device: str):
+    """``Trainer.fit`` wrapped to record each call's steps, seconds (to the
+    end of its device work), ms a step and peak device memory."""
+    import torch
+
+    def make(real):
+        def fit(self, state, *a, **kw):
+            step0 = state.step
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, history = real(self, state, *a, **kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            steps = state.step - step0
+            runs.append({"steps": steps, "batch": self.cfg.batch_size,
+                         "ranking_size": self.cfg.ranking_size,
+                         "rankings_per_image": self.cfg.rankings_per_image,
+                         "fit_s": secs, "ms_per_step": secs * 1e3 / max(1, steps),
+                         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                         if device == "cuda" else None)})
+            return state, history
+        return fit
+    return make
+
+
+def sweep_run(argv, what: str, device: str):
+    """One cli sweep: its records, the K1 launches, the fit of each run."""
+    from pldepth_torch.train.trainer import Trainer
+
+    runs = []
+    reset_counts()
+    with patched(Trainer, "fit", fit_meter(runs, device)):
+        lines, secs = run_cli(argv)
+    launches = fused_k1_counts()
+    out = json_report(lines, what)
+    steps = sum(r["steps"] for r in runs)
+    if device == "cuda" and launches != {"ranking_loss_fwd": steps, "ranking_loss_bwd": steps}:
+        fail(f"{what}: K1 launches {launches}, expected {steps} each way (the runs' steps)")
+    return out, runs, launches, secs
+
+
+def check_records(path: str, n: int, target: str, what: str):
+    """The state file's records: ``n``, none with an error, finite target."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    recs = [json.loads(line) for line in lines]
+    if len(recs) != n:
+        fail(f"{what}: {len(recs)} records, expected {n}")
+    for i, r in enumerate(recs):
+        if "error" in r["metrics"] or not math.isfinite(r["metrics"].get(target, math.inf)):
+            fail(f"{what}: record {i} failed: {r}")
+    return recs, lines
+
+
+def sweep_phase(smi: str, ds, device="cuda", size=SIZE, n=SWEEP_N, config=None) -> dict:
+    """Phase 17b: cli sweep --search tpe over the base space (6 runs, then
+    resumed to 7), then --search random over large_rankings (2 runs of
+    SWEEP_LARGE_EPOCHS epochs): every record error-free and finite, each
+    run's steps as its draw gives them, K1 launches = the runs' steps, the
+    resume adds one record and keeps the first six byte-equal; seconds,
+    peak memory and ms a step of each run. Phase 17c: cli analyze on the
+    TPE state file names the least test_error."""
+    import numpy as np
+
+    from pldepth_torch.sweep import analyze as an
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = config or os.path.join(here, "configs", EFFNET_CONFIG)
+    n_train = n - n // 15
+    rec = {"n": n, "n_train": n_train}
+    launches = {"ranking_loss_fwd": 0, "ranking_loss_bwd": 0}
+    with tempfile.TemporaryDirectory() as tmp, cached_sets({(size, 0): ds}, "synthetic"):
+        tpe = os.path.join(tmp, "tpe")
+        base = ["sweep", "--config_json", config, "--ds_size", str(n), "--input_size", str(size),
+                "--search", "tpe", "--space", "base", "--output_dir", tpe, "--device", device]
+        rec["tpe"] = {}
+        for runs_n in (SWEEP_TPE_RUNS, SWEEP_TPE_RUNS + 1):
+            what = f"cli sweep --search tpe --num_runs {runs_n}"
+            out, runs, k1n, secs = sweep_run([*base, "--num_runs", str(runs_n)], what, device)
+            recs, lines = check_records(os.path.join(tpe, "sweep_state.jsonl"), runs_n,
+                                        "test_error", what)
+            new = recs[len(recs) - len(runs):]
+            for r, o in zip(runs, new):
+                want = o["overrides"]["epochs"] * (n_train // o["overrides"]["batch_size"])
+                if r["steps"] != want or r["batch"] != o["overrides"]["batch_size"]:
+                    fail(f"{what}: a run of {o['overrides']} took {r['steps']} steps at batch "
+                         f"{r['batch']}, expected {want}")
+                r.update(overrides=o["overrides"], metrics=o["metrics"])
+            if runs_n > SWEEP_TPE_RUNS:
+                if len(runs) != 1 or lines[:SWEEP_TPE_RUNS] != first:
+                    fail(f"{what}: the resume ran {len(runs)} runs or changed the first "
+                         f"{SWEEP_TPE_RUNS} records")
+            first = lines[:SWEEP_TPE_RUNS]
+            best = min(recs, key=lambda r: r["metrics"]["test_error"])
+            if out["best"] != best or out["num_runs"] != runs_n:
+                fail(f"{what}: reported {out['best']} of {out['num_runs']}, expected {best}")
+            for k in launches:
+                launches[k] += k1n[k]
+            rec["tpe"][runs_n] = {"s": secs, "runs": runs, "k1_launches": k1n}
+            for i, r in enumerate(runs):
+                log(f"  run {i}: {r['overrides']} -> test_error {r['metrics']['test_error']:.4f}"
+                    f", {r['steps']} steps, fit {r['fit_s']:.1f} s, {r['ms_per_step']:.1f} ms a "
+                    f"step, peak {r['peak_mem_gb'] or 0:.2f} GB")
+            log(f"{what}: {secs:.1f} s, K1 {k1n} [{smi}]")
+        # 17c: the analysis of the TPE file
+        state = os.path.join(tpe, "sweep_state.jsonl")
+        trials = an.load_trials(state)
+        best = min(trials, key=lambda r: r["metrics"]["test_error"])
+        mpl = import_state("matplotlib")
+        rec["analyze"] = {"matplotlib": mpl}
+        if mpl.startswith("not"):
+            log(f"matplotlib {mpl}: cli analyze draws its plots with it, so best_trial is "
+                "checked directly")
+            got = an.best_trial(trials)
+        else:
+            lines, rec["analyze"]["s"] = run_cli(["analyze", "--state_path", state, "--out_dir",
+                                                  os.path.join(tmp, "plots")])
+            rep = json_report(lines, "cli analyze")
+            got = rep["best"]
+            rec["analyze"]["plots"] = [os.path.basename(p) for p in rep["plots"]]
+            if sorted(rec["analyze"]["plots"]) != sorted(
+                    f"{k}_vs_test_error.png" for k in best["overrides"]):
+                fail(f"cli analyze plotted {rec['analyze']['plots']}")
+        if got != best:
+            fail(f"cli analyze: best {got}, expected the least test_error {best}")
+        log(f"cli analyze: best {best['overrides']} (test_error "
+            f"{best['metrics']['test_error']:.4f}), plots {rec['analyze'].get('plots')}")
+        # K1 at K 25-500 inside a 448^2 train step
+        large = os.path.join(tmp, "large")
+        what = f"cli sweep --search random --space large_rankings --num_runs {SWEEP_LARGE_RUNS}"
+        out, runs, k1n, secs = sweep_run([
+            "sweep", "--config_json", config, "--ds_size", str(n), "--input_size", str(size),
+            "--epochs", str(SWEEP_LARGE_EPOCHS), "--search", "random", "--space",
+            "large_rankings", "--num_runs", str(SWEEP_LARGE_RUNS), "--output_dir", large,
+            "--device", device], what, device)
+        recs, _ = check_records(os.path.join(large, "sweep_state.jsonl"), SWEEP_LARGE_RUNS,
+                                "test_error", what)
+        for r, o in zip(runs, recs):
+            r.update(overrides=o["overrides"], metrics=o["metrics"])
+            if not all(np.isfinite(v) for v in o["metrics"].values()):
+                fail(f"{what}: non-finite {o}")
+            log(f"  run: {o['overrides']} -> {o['metrics']}, {r['steps']} steps, "
+                f"{r['ms_per_step']:.1f} ms a step, peak {r['peak_mem_gb'] or 0:.2f} GB")
+        for k in launches:
+            launches[k] += k1n[k]
+        rec["large_rankings"] = {"s": secs, "runs": runs, "k1_launches": k1n}
+        log(f"{what}: {secs:.1f} s, K1 {k1n} [{smi}]")
+    rec["k1_launches"] = launches
+    return rec
+
+
+def warmup_phase(smi: str, device="cuda", config=None) -> dict:
+    """Phase 17d: cli warmup --serve_batch WARMUP_SERVE at batch
+    WARMUP_BATCH in a copy of pldepth_torch (PYTHONPATH; its build
+    directory starts empty): it builds the four CUDA libraries and packio;
+    a second warmup builds nothing; cli train with --pack_cache in that
+    copy leaves the build directory as it was. Cold build_s and each
+    graph's first-call seconds."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = config or os.path.join(here, "configs", EFFNET_CONFIG)
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(os.path.join(here, "pldepth_torch"), os.path.join(tmp, "pldepth_torch"),
+                        ignore=shutil.ignore_patterns("_kernels_build", "__pycache__"))
+        build_dir = os.path.join(tmp, "pldepth_torch", "_kernels_build")
+        env = {**os.environ, "PYTHONPATH": tmp}
+
+        def cli_copy(*argv, what):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "pldepth_torch.cli", *argv], cwd=tmp,
+                               env=env, capture_output=True, text=True, timeout=900)
+            secs = time.perf_counter() - t0
+            if r.returncode != 0:
+                fail(f"{what} in a copy of the package returned {r.returncode}:\n"
+                     f"{r.stderr[-3000:]}")
+            return r.stdout.strip().splitlines(), secs
+
+        def listing():
+            return sorted((e.name, e.stat().st_size, e.stat().st_mtime_ns)
+                          for e in os.scandir(build_dir)) if os.path.isdir(build_dir) else []
+
+        warm = ["warmup", "--config_json", config, "--batch_size", str(WARMUP_BATCH),
+                "--serve_batch", str(WARMUP_SERVE), "--device", device]
+        for key in ("cold", "warm"):
+            lines, secs = cli_copy(*warm, what=f"cli warmup ({key})")
+            out = json.loads(lines[-1])
+            want = WARMUP_BUILT if key == "cold" else []
+            if device != "cuda":
+                want = [b for b in want if b == "packio"]
+            if sorted(out["built"]) != want or out["cache_dir"] != build_dir:
+                fail(f"cli warmup ({key}) built {out['built']} into {out['cache_dir']}, "
+                     f"expected {want} into {build_dir}")
+            rec[key] = {**out, "s": secs}
+            log(f"cli warmup ({key}): built {out['built']} in {out['build_s']:.1f} s; first "
+                f"train step {out['train_step_s']:.2f} s, predict {out['predict_s']:.2f} s, "
+                f"predict_bnfold {out['predict_bnfold_s']:.2f} s at batch {WARMUP_SERVE}; "
+                f"{secs:.1f} s of command [{smi}]")
+        before = listing()
+        lines, secs = cli_copy(
+            "train", "--config_json", config, "--dataset", "synthetic", "--ds_size",
+            str(WARMUP_N), "--batch_size", str(WARMUP_BATCH), "--epochs", "1",
+            "--pack_cache", os.path.join(tmp, "train.pldpack"), "--output_dir",
+            os.path.join(tmp, "runs"), "--run_name", "after", "--device", device,
+            what="cli train after warmup")
+        after = listing()
+        if after != before:
+            fail(f"cli train after warmup changed the build directory: {before} -> {after}")
+        if not os.path.exists(os.path.join(tmp, "runs", "after", "weights.npz")):
+            fail("cli train after warmup wrote no weights.npz")
+        rec["train_after"] = {"s": secs, "build_dir": [name for name, _, _ in after]}
+        log(f"cli train --pack_cache after warmup: {secs:.1f} s, the build directory unchanged "
+            f"({[name for name, _, _ in after]})")
+    return rec
+
+
+def phase17(smi: str) -> dict:
+    """Phase 17: --profile and the sinks (17a), sweeps (17b), the analysis
+    (17c) and warmup (17d) on synthetic sets made once beforehand."""
+    import torch
+
+    t0 = time.perf_counter()
+    ds = synthetic_cached(PROFILE_N, SIZE)
+    rec = {"synthetic_s": time.perf_counter() - t0}
+    rec["profile"] = profile_phase(smi, ds)
+    rec["sweep"] = sweep_phase(smi, ds)
+    del ds
+    torch.cuda.empty_cache()
+    log("cli convert is not driven here: it needs TensorFlow, which this machine may lack "
+        "(tests/test_torch_convert.py holds it against the JAX package on the CPU)")
+    rec["warmup"] = warmup_phase(smi)
+    rec["k1_launches"] = {k: rec["profile"]["k1_launches"][k] + rec["sweep"]["k1_launches"][k]
+                          for k in ("ranking_loss_fwd", "ranking_loss_bwd")}
+    rec["s"] = time.perf_counter() - t0
+    log(f"phase 17: {rec['s']:.1f} s (synthetic {rec['synthetic_s']:.1f} s) [{smi}]")
     return rec
 
 
@@ -3865,6 +4270,11 @@ def main() -> int:
 
     mark("16")
 
+    # 17. --profile and the sinks, sweeps and their analysis, warmup --------------------
+    record["phase17"] = rec17 = phase17(smi)
+
+    mark("17")
+
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",
         "source": "pldepth_torch/csrc/fused_mbconv.cu",
@@ -3884,7 +4294,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": (rec_t["launches"][name] + rec_rt["launches"][name]
                      + rec_d["k1_launches"][name] + rec16["gate"]["k1_launches"][name]
-                     + rec16["active"]["k1_launches"][name]),
+                     + rec16["active"]["k1_launches"][name] + rec17["k1_launches"][name]),
         "max_abs_err": err,
         **{key: k1t["fused"][K1_MAIN][name][key] for key in ("ms", "plain_ms", "bound_ms",
                                                               "bound_by")},

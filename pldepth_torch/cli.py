@@ -1,19 +1,21 @@
 """Command line of the port: ``python -m pldepth_torch.cli
-train|eval|zeroshot|predict|serve|export|active|dump|chi2 ...``.
+train|eval|zeroshot|predict|serve|export|active|dump|chi2|analyze|convert|warmup|sweep ...``.
 
-The ``train``, ``eval``, ``zeroshot``, ``predict``, ``serve``, ``export``,
-``active``, ``dump`` and ``chi2`` commands of
-``pldepth_tpu/cli.py`` with the same flag names, defaults and
-``true``/``false`` booleans, written with argparse, plus ``--device``
-(default ``cuda``; ``cpu`` runs the plain versions of the kernels).
+The thirteen commands of ``pldepth_tpu/cli.py`` with the same flag names,
+defaults and ``true``/``false`` booleans, written with argparse, plus
+``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
+kernels) on every command that runs the model.
 ``train`` runs ``Trainer.fit`` on one of three feeds (``--data_resident``:
 the set held on the card; ``--pack_cache``: a packed file through the
 native reader; else ``BatchIterator``, optionally ``--uint8_wire``), saves
 ``weights.npz`` and evaluates the trained weights on up to 250 validation
 images (``summary.json``, an example image, and with ``--parity_report
 true`` the verdict of
-docs/PARITY.md in ``parity_report.json``). ``eval`` is the test-set report,
-``zeroshot`` the cross-dataset suite (Ibims, DIODE, Sintel, TUM, DIW).
+docs/PARITY.md in ``parity_report.json``); ``--profile true`` traces three
+steady steps (obs/profiling.py) before ``fit``, and the wandb, TensorBoard
+and mlflow sinks follow ``--use_*`` (obs/logging.py). ``eval`` is the
+test-set report, ``zeroshot`` the cross-dataset suite (Ibims, DIODE,
+Sintel, TUM, DIW).
 ``predict`` and ``serve`` with their default flags serve the int8 graph of
 the ff_effnet family (dense convs on K4, ops/quant_matmul.py), calibrated
 on the first input batch(es), and the BN-folded graph of ff_redweb;
@@ -22,10 +24,14 @@ on the first input batch(es), and the BN-folded graph of ff_redweb;
 ``active`` runs the active-learning rounds (active/loop.py) after loading
 or pretraining weights, ``dump`` writes sampled (image, rankings) data
 (data/offline.py), ``chi2`` the samplers' chi^2 diagnostic
-(diagnostics/chi2.py).
+(diagnostics/chi2.py). ``sweep`` runs a random / grid / TPE search (or a
+wandb sweep) of short training runs with ``sweep_state.jsonl`` resume
+(sweep/sweep.py), ``analyze`` reads that file back (sweep/analyze.py),
+``convert`` maps Keras weights to the flat npz and back (models/convert.py;
+needs TensorFlow) and ``warmup`` builds the kernels and runs each graph of
+a config once.
 Options the port does not run yet raise NotImplementedError naming their
-ROADMAP item. The other commands come with later slices (ROADMAP.md queue
-1).
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -203,6 +209,44 @@ def _parser() -> argparse.ArgumentParser:
                     help="bake BN-folded weights into the artifact (models/bn_fold.py)")
     ex.add_argument("--device", default="cuda", help="cuda (default) or cpu: where the "
                                                      "graph is traced")
+    an = sub.add_parser("analyze", help="sweep analysis: best trial and param-vs-metric plots "
+                                        "(reference bk-hyperopt/trials_visualize.py)")
+    an.add_argument("--state_path", required=True, help="sweep_state.jsonl")
+    an.add_argument("--out_dir", default="sweep_plots")
+    an.add_argument("--target", default="test_error")
+    cv = sub.add_parser("convert", help="Keras weights -> the npz of --pretrained_path, or "
+                                        "with --reverse a weights npz -> Keras .h5 (TensorFlow)")
+    cv.add_argument("--weights", required=True,
+                    help="Keras model file (.h5 / SavedModel dir) holding the backbone -- or, "
+                         "with --reverse, a weights .npz of this package")
+    cv.add_argument("--model_name", default="ff_effnet",
+                    help="target family: ff_effnet* (EfficientNet) or ff_redweb (ResNet-50)")
+    cv.add_argument("--out", required=True,
+                    help="output .npz for --pretrained_path (or .h5 with --reverse)")
+    cv.add_argument("--reverse", action="store_true", default=False,
+                    help="export the other way: weights .npz -> Keras .h5")
+    cv.add_argument("--template", default="",
+                    help="(--reverse) existing Keras .h5 with the target architecture to "
+                         "fill; without it a bare keras.applications backbone is built "
+                         "and filled encoder-only")
+    cv.add_argument("--input_size", default=448, type=int,
+                    help="(--reverse, no template) input size of the built backbone")
+    wu = sub.add_parser("warmup", help="build the kernels and run each graph of a config once")
+    _add_train_options(wu)
+    wu.add_argument("--serve_batch", default=0, type=int,
+                    help="also run the serving graphs (predict + bn_fold) at this batch "
+                         "size; 0 = training only")
+    sw = sub.add_parser("sweep", help="hyperparameter sweep (reference "
+                                      "pldepth/hyperopt/sweep.py adapters)")
+    _add_train_options(sw)
+    sw.add_argument("--num_runs", default=8, type=int)
+    sw.add_argument("--search", default="random", choices=["random", "grid", "tpe", "wandb"])
+    sw.add_argument("--target", default="test_error")
+    sw.add_argument("--space", dest="space_name", default="base",
+                    help="search space name (sweep/search_spaces.py)")
+    sw.add_argument("--sweep_id", default=None,
+                    help="wandb backend: re-attach an agent to an existing sweep "
+                         "(reference hyperopt/restart_sweep.py)")
     return p
 
 
@@ -451,8 +495,6 @@ def train(args: argparse.Namespace) -> dict:
     from pldepth_torch.train.trainer import Trainer
 
     cfg = _make_config(vars(args))
-    if cfg.profile:
-        raise NotImplementedError("--profile is not ported yet: ROADMAP.md queue 1 item 12")
     if args.resume and not args.run_name:
         raise SystemExit("--resume needs a fixed --run_name")
     run_name = args.run_name or time.strftime("%d%m%y-%H%M%S") + f"_s{cfg.sampling_type}"
@@ -460,7 +502,8 @@ def train(args: argparse.Namespace) -> dict:
     # the Trainer checks the training options before any file is written
     trainer = Trainer(cfg, max(1, len(train_ds) // cfg.batch_size), device=args.device)
     logger = MetricLogger(cfg.output_dir, run_name, cfg.to_dict(), cfg.use_wandb,
-                          cfg.use_tensorboard, cfg.use_mlflow)
+                          use_tensorboard=cfg.use_tensorboard, use_mlflow=cfg.use_mlflow,
+                          mlflow_tracking_uri=cfg.mlflow_tracking_uri)
     state = trainer.init_state()
     if cfg.load_model_path:
         state = load_weights_npz(cfg.load_model_path, state)
@@ -519,6 +562,9 @@ def train(args: argparse.Namespace) -> dict:
         def on_train_end(self, tr, st, history):
             pass
 
+    if cfg.profile:
+        state = _profile_steps(trainer, state, train_iter, resident_store,
+                               os.path.join(logger.dir, "profile"))
     try:
         state, history = trainer.fit(state, train_iter, val_iter_factory=vfac,
                                      callbacks=[LogCB()], ckpt=auto_ckpt,
@@ -540,6 +586,33 @@ def train(args: argparse.Namespace) -> dict:
     return {**out, "weights": weights_path}
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _profile_steps(trainer, state, train_iter, resident_store, logdir: str):
+    """``--profile``: one step outside the trace, then three steady steps
+    inside a torch.profiler trace written to ``logdir`` (the JAX command's
+    window; the reference disabled profiling, tracking_utils.py:39). The
+    steps draw from the run's own feed, so ``fit`` starts four batches on."""
+    from pldepth_torch.obs.profiling import profile_trace
+
+    def one_step(st):
+        if resident_store is not None:
+            return trainer.resident_step(st, resident_store.arrays)[0]
+        return trainer.train_step(st, next(train_iter))[0]
+
+    state = one_step(state)  # first-use costs stay outside the trace
+    _sync(trainer.device)
+    with profile_trace(logdir):
+        for _ in range(3):
+            state = one_step(state)
+    return state
+
+
 def active(args: argparse.Namespace) -> dict:
     """Active learning (reference run_scripts/active_PLDepth.py:160-185):
     ``--load_model_path`` weights or ``--pretrain_epochs`` of ``fit``, then
@@ -557,7 +630,8 @@ def active(args: argparse.Namespace) -> dict:
     trainer = Trainer(cfg, max(1, len(train_ds) // cfg.batch_size), device=args.device)
     run_name = time.strftime("%d%m%y-%H%M%S") + "_active"
     logger = MetricLogger(cfg.output_dir, run_name, cfg.to_dict(), cfg.use_wandb,
-                          cfg.use_tensorboard, cfg.use_mlflow)
+                          use_tensorboard=cfg.use_tensorboard, use_mlflow=cfg.use_mlflow,
+                          mlflow_tracking_uri=cfg.mlflow_tracking_uri)
     state = trainer.init_state()
     if cfg.load_model_path:
         state = load_weights_npz(cfg.load_model_path, state)
@@ -609,6 +683,110 @@ def chi2(args: argparse.Namespace) -> dict:
                             batches_per_trial=args.batches_per_trial, device=args.device)
 
 
+def analyze(args: argparse.Namespace) -> dict:
+    """Sweep analysis: best trial and param-vs-metric plots (reference
+    bk-hyperopt/trials_visualize.py HyperoptAnalyser)."""
+    from pldepth_torch.sweep.analyze import best_trial, load_trials, plot_param_vs_metric
+
+    trials = load_trials(args.state_path)
+    best = best_trial(trials, args.target)
+    plots = plot_param_vs_metric(args.state_path, args.out_dir, args.target)
+    return {"best": best, "plots": plots}
+
+
+def convert(args: argparse.Namespace) -> dict:
+    """Keras weights -> the npz of ``--pretrained_path`` (reference encoders
+    came from keras.applications, pl_hourglass.py:48 / redweb.py:410), or
+    with ``--reverse`` a weights npz -> a Keras .h5 the reference stack
+    loads (test_data_eval.py:70-85). Needs TensorFlow; runs on the host."""
+    from pldepth_torch.models import convert as cv
+
+    if args.reverse:
+        path, n = cv.export_npz_to_keras_file(args.weights, args.model_name, args.out,
+                                              template_h5=args.template or None,
+                                              input_size=args.input_size)
+        return {"out": path, "model_name": args.model_name, "tensors_assigned": n}
+    path = cv.convert_keras_file(args.weights, args.model_name, args.out)
+    return {"out": path, "model_name": args.model_name}
+
+
+def warmup(args: argparse.Namespace) -> dict:
+    """Build what a config runs and run each of its graphs once (the
+    counterpart of ``pldepth_tpu/cli.py warmup``, which fills the XLA
+    compile cache). The port compiles no graph: what a first run pays for
+    is the kernel libraries (``ops/_build.py``, one nvcc each, in parallel,
+    into ``BUILD_DIR``; only on the card) and the packed reader
+    (``data/packed.py:build_native``), then the first call of each path
+    (cuDNN and cuBLAS set-up, the libraries' loading): one train step on
+    zeros on a throwaway state, with ``--data_resident true`` one resident
+    step (or chain) on a small seeded store, with ``--serve_batch B``
+    ``predict`` and ``predict_bnfold`` at batch B. Only the build carries
+    over to a later process; the first-call costs are the process's own.
+    Returns the seconds of each, the libraries built by this call and
+    ``cache_dir`` (the build directory)."""
+    import numpy as np
+
+    from pldepth_torch.core.device import resolve_device
+    from pldepth_torch.data import packed
+    from pldepth_torch.ops import _build
+    from pldepth_torch.train.trainer import Trainer
+
+    device = resolve_device(args.device)
+    cfg = _make_config(vars(args))
+    t0 = time.perf_counter()
+    built = sorted(_build.build()) if device.type == "cuda" else []
+    if not packed.library_path().exists():
+        packed.build_native()
+        built.append("packio")
+    out = {"cache_dir": str(_build.BUILD_DIR), "built": built,
+           "build_s": time.perf_counter() - t0}
+
+    def timed(key, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(device)
+        out[key] = time.perf_counter() - t0
+        return res
+
+    trainer = Trainer(cfg, steps_per_epoch=1, device=device)
+    state = trainer.init_state()
+    shape = (cfg.batch_size, cfg.input_size, cfg.input_size)
+    batch = {"image": np.zeros((*shape, 3), np.float32), "gt": np.ones(shape, np.float32),
+             "mask": np.ones(shape, np.float32)}
+    state = timed("train_step_s", lambda: trainer.train_step(state, batch)[0])
+    if cfg.data_resident:
+        from pldepth_torch.data import SyntheticDepthDataset
+        from pldepth_torch.data.resident import build_resident_store
+
+        store = build_resident_store(SyntheticDepthDataset(
+            n=max(cfg.batch_size, 2), image_size=cfg.input_size, seed=0), device)
+        step = (trainer.resident_chain(cfg.resident_chain_steps)
+                if cfg.resident_chain_steps > 1 else trainer.resident_step)
+        state = timed("resident_s", lambda: step(state, store.arrays)[0])
+    if args.serve_batch:
+        imgs = np.zeros((args.serve_batch, cfg.input_size, cfg.input_size, 3), np.float32)
+        for key, mode in (("predict_s", False), ("predict_bnfold_s", "bn_fold")):
+            fn = trainer.jit_predict(fused=mode)
+            timed(key, lambda: np.asarray(fn(state, imgs)))
+    return out
+
+
+def sweep(args: argparse.Namespace) -> dict:
+    """Hyperparameter sweep (reference pldepth/hyperopt/sweep.py adapters):
+    ``--search wandb`` drives the runs from a wandb sweep server (bayes);
+    random / grid / tpe run locally with ``sweep_state.jsonl`` resume."""
+    from pldepth_torch.sweep import sweep as sw
+
+    cfg = _make_config(vars(args))
+    if args.search == "wandb":
+        return sw.run_wandb_sweep(cfg, num_runs=args.num_runs, target=args.target,
+                                  space_name=args.space_name, sweep_id=args.sweep_id,
+                                  device=args.device)
+    return sw.run_sweep(cfg, num_runs=args.num_runs, search=args.search, target=args.target,
+                        space_name=args.space_name, device=args.device)
+
+
 def _post_train_eval(cfg, trainer, state, val_ds, logger) -> None:
     """Ordinal error and NDCG@200 on up to 250 val images, an example image
     (reference PLDepth.py:184-209), and with ``--parity_report`` the full
@@ -626,7 +804,9 @@ def _post_train_eval(cfg, trainer, state, val_ds, logger) -> None:
         print(json.dumps({"test_error": err, "ndcg_200": ndcg}), flush=True)
         ex = val_ds[min(10, len(val_ds) - 1)]
         pred = np.asarray(trainer.jit_predict()(state, np.asarray(ex["image"])[None]))[0]
-        logger.log_images({"ex_img": ex["image"], "ex_gt": ex["gt"], "ex_pred": pred})
+        logger.log_images({"ex_img": ex["image"], "ex_gt": ex["gt"], "ex_pred": pred},
+                          captions={"ex_img": "input image", "ex_gt": "input ground truth",
+                                    "ex_pred": "predicted depth"})
     if not (cfg.parity_report and len(val_ds)):
         return
     report = evaluator.full_report(val_ds, limit=limit)
@@ -676,6 +856,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(dump(args))
     elif args.command == "chi2":
         print(json.dumps(chi2(args), indent=2))
+    elif args.command == "analyze":
+        print(json.dumps(analyze(args), indent=2))
+    elif args.command == "convert":
+        print(json.dumps(convert(args)))
+    elif args.command == "warmup":
+        print(json.dumps(warmup(args)))
+    elif args.command == "sweep":
+        print(json.dumps(sweep(args), indent=2))
     return 0
 
 

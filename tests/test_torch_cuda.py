@@ -754,3 +754,43 @@ def test_jit_predict_resident_on_the_card_equals_predict(cuda_device):
         x = (u8[start: start + 4].cpu().to(torch.float32) / 255.0).cuda()
         got = np.asarray(fn(state, u8, start))
         np.testing.assert_array_equal(got, trainer.predict(state, x).cpu().numpy())
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its trace parser names the kernels."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+def test_profile_trace_of_a_card_step_holds_the_fused_k1(cuda_device, tmp_path):
+    """obs/profiling.py's trace of one train step records K1's fused
+    forward and backward kernels (template MODE 1, the whole loss), once
+    each, beside the rest of the step."""
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.obs.profiling import profile_trace
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(ExperimentConfig(model_name="ff_smoke", input_size=64, batch_size=2,
+                                       rankings_per_image=16, ranking_size=5))
+    state = trainer.init_state()
+    state, _ = trainer.train_step(state, _step_batch())
+    torch.cuda.synchronize()
+    with profile_trace(str(tmp_path)):
+        for _ in range(8):  # the first launches of a window can go unrecorded
+            torch.cuda._sleep(1000)
+        trainer.train_step(state, _step_batch())
+    smoke = _chip_smoke()
+    kernels, _, _ = smoke.trace_kernels(str(tmp_path))
+    k1 = {n: c for n, c in kernels.items() if n.startswith("k1_")}
+    assert k1 == {"k1_fwd_thread_kernel<5, 1>": 1, "k1_bwd_thread_kernel<5, 1>": 1}, k1
+    assert smoke.k1_trace_counts(kernels) == {"ranking_loss_fwd": 1, "ranking_loss_bwd": 1,
+                                              "listmle_fwd": 0, "listmle_bwd": 0}
+    assert sum(kernels.values()) > 20

@@ -1,10 +1,11 @@
 """The port stands alone and never swaps devices: no module of
 ``pldepth_torch`` (nor ``chip_smoke.py``) imports jax, flax or
-pldepth_tpu, and none imports cv2, PIL, scipy or h5py when it is imported
-(the readers and scenes import them where they use them); entry points and
-the resident store raise without a card unless the CPU is asked for; the
-kernel wrappers and the packed reader's build have no try/except path;
-chip_smoke.py fails without a card and when run away from the repository."""
+pldepth_tpu, and none imports cv2, PIL, scipy, h5py, TensorFlow,
+matplotlib, wandb, mlflow or TensorBoard when it is imported (the readers,
+scenes, the sinks, the plots and the converter import them where they use
+them); entry points and the resident store raise without a card unless
+the CPU is asked for; the kernel wrappers and the packed reader's build
+have no try/except path; chip_smoke.py fails without a card and when run away from the repository."""
 
 import ast
 import glob
@@ -37,7 +38,8 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
-LAZY = {"cv2", "PIL", "scipy", "h5py"}
+LAZY = {"cv2", "PIL", "scipy", "h5py", "tensorflow", "matplotlib", "wandb", "mlflow",
+        "tensorboard"}
 
 
 def _import_time_imports(path):
@@ -86,6 +88,38 @@ def test_new_slice_imports_no_optional_library():
                        timeout=120)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"
+
+
+def test_sweeps_logging_and_convert_import_no_optional_library():
+    """Importing the sweeps, the analysis, the loggers and profiling, the
+    Keras converter and the CLI loads none of TensorFlow, matplotlib,
+    wandb, mlflow or TensorBoard: each is imported where it is used."""
+    code = ("import sys; import pldepth_torch.sweep, pldepth_torch.sweep.analyze, "
+            "pldepth_torch.obs, pldepth_torch.models.convert, pldepth_torch.cli; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} & {'tensorflow', 'keras', "
+            "'matplotlib', 'wandb', 'mlflow', 'tensorboard'}), "
+            "'torch.utils.tensorboard' in sys.modules)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[] False"
+
+
+@pytest.mark.parametrize("command", ["sweep", "warmup"])
+def test_cli_sweep_warmup_raise_without_a_card(monkeypatch, tmp_path, command):
+    """No --device: the card is asked for, and its absence raises before
+    a state file, a run directory or a kernel library is written."""
+    from pldepth_torch.cli import main
+    from pldepth_torch.data import packed
+    from pldepth_torch.ops import _build
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(packed, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([command, "--model_name", "ff_smoke", "--input_size", "32", "--ds_size", "16",
+              "--output_dir", str(tmp_path / "out")])
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("command", ["active", "dump", "chi2"])
