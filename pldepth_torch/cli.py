@@ -32,6 +32,13 @@ needs TensorFlow) and ``warmup`` builds the kernels and runs each graph of
 a config once.
 Options the port does not run yet raise NotImplementedError naming their
 ROADMAP item.
+
+Under ``torchrun --nproc_per_node N`` (``WORLD_SIZE`` > 1) ``train``,
+``active`` and ``warmup`` join the process group first (core/mesh.py:
+NCCL with a card per rank, gloo when ranks share a card or run on the
+CPU). ``train`` then feeds each rank its stride of the data (the streaming
+feed's ``batch_size`` is per rank, the resident store's the global batch),
+and rank 0 alone writes the run directory and runs the post-train report.
 """
 
 from __future__ import annotations
@@ -446,6 +453,17 @@ def export(args: argparse.Namespace) -> dict:
             "input_size": args.input_size}
 
 
+def _join_group(args: argparse.Namespace):
+    """The process's mesh: under a launcher (``WORLD_SIZE`` > 1) join the
+    process group unless this process already has one; a group that cannot
+    form raises, nothing falls back to one process."""
+    from pldepth_torch.core import mesh as mesh_lib
+
+    if int(os.environ.get("WORLD_SIZE", 1)) > 1 and not mesh_lib.current().active:
+        return mesh_lib.init_distributed(device="cpu" if args.device == "cpu" else None)
+    return mesh_lib.current()
+
+
 def _make_config(kw: dict):
     """Config from flags (``pldepth_tpu/cli.py:_make_config``): a
     ``--config_json`` value applies where the flag still holds the
@@ -497,30 +515,44 @@ def train(args: argparse.Namespace) -> dict:
     cfg = _make_config(vars(args))
     if args.resume and not args.run_name:
         raise SystemExit("--resume needs a fixed --run_name")
-    run_name = args.run_name or time.strftime("%d%m%y-%H%M%S") + f"_s{cfg.sampling_type}"
+    mesh = _join_group(args)
+    world, rank = mesh.world, mesh.rank
+    if world > 1 and args.pack_cache and not cfg.data_resident:
+        raise NotImplementedError(
+            "--pack_cache has no shard contract across processes yet: "
+            "ROADMAP.md queue 1 item 11, the packed feed under data parallelism")
+    # every rank names rank 0's run directory
+    run_name = mesh.broadcast_object(
+        args.run_name or time.strftime("%d%m%y-%H%M%S") + f"_s{cfg.sampling_type}")
     train_ds, val_ds = _load_data(cfg)
+    # a streaming rank steps through its stride of the set; the resident
+    # batch_size is the global batch
+    per_rank = len(train_ds) if cfg.data_resident else len(train_ds) // world
     # the Trainer checks the training options before any file is written
-    trainer = Trainer(cfg, max(1, len(train_ds) // cfg.batch_size), device=args.device)
+    trainer = Trainer(cfg, max(1, per_rank // cfg.batch_size), device=args.device)
     logger = MetricLogger(cfg.output_dir, run_name, cfg.to_dict(), cfg.use_wandb,
                           use_tensorboard=cfg.use_tensorboard, use_mlflow=cfg.use_mlflow,
                           mlflow_tracking_uri=cfg.mlflow_tracking_uri)
     state = trainer.init_state()
     if cfg.load_model_path:
-        state = load_weights_npz(cfg.load_model_path, state)
+        state = trainer.replicate(load_weights_npz(cfg.load_model_path, state))
 
     # full-state checkpoints by global step (one per epoch + one on SIGTERM)
     auto_ckpt = CheckpointManager(os.path.join(logger.dir, "autockpt"), keep=cfg.keep_checkpoints)
     if args.resume and auto_ckpt.latest_step() is not None:
-        state = auto_ckpt.restore(state)
+        state = trainer.replicate(auto_ckpt.restore(state))
         print(f"resumed from step {state.step}", flush=True)
     # the feed, in the JAX command's precedence: resident store, pack, stream
     resident_store = train_iter = None
     if cfg.data_resident:
         from pldepth_torch.data.resident import build_resident_store
 
-        resident_store = build_resident_store(train_ds, trainer.device)
-        print(f"resident store: {resident_store.n} samples, "
-              f"{resident_store.nbytes / 1e9:.2f} GB in HBM", flush=True)
+        resident_store = build_resident_store(train_ds, trainer.device, shard_index=rank,
+                                              num_shards=world)
+        shard = f" (rank {rank} of {world})" if world > 1 else ""
+        print(f"resident store{shard}: {resident_store.n} samples, "
+              f"{resident_store.nbytes / 1e9:.2f} GB in HBM, gt_scale "
+              f"{resident_store.gt_scale!r}", flush=True)
     elif args.pack_cache:
         from pldepth_torch.data.packed import NativePackedIterator, pack_dataset
 
@@ -530,17 +562,21 @@ def train(args: argparse.Namespace) -> dict:
         train_iter = NativePackedIterator(args.pack_cache, cfg.batch_size, seed=cfg.seed,
                                           start_step=state.step, ring=cfg.prefetch_depth)
     else:
+        # each rank its stride of one permutation (the JAX command does not
+        # shard this feed: ROADMAP.md, noted, not faults)
         train_iter = BatchIterator(train_ds, cfg.batch_size, seed=cfg.seed,
                                    start_step=state.step, prefetch=cfg.prefetch_depth,
-                                   uint8_wire=cfg.uint8_wire)
+                                   uint8_wire=cfg.uint8_wire, shard_index=rank,
+                                   num_shards=world)
     vfac = None
-    if len(val_ds) >= cfg.batch_size:
+    if len(val_ds) // world >= cfg.batch_size:
         # fixed val rankings from the thresholded sampler (hourglass_provider.py:22)
         val_rankings = pregenerate_val_rankings(
             val_ds, sampler_name="thresholded", rankings_per_image=cfg.val_rpi,
             ranking_size=cfg.ranking_size, threshold=cfg.equality_threshold, seed=cfg.seed,
             device=trainer.device)
-        vfac = lambda: val_batches(val_ds, val_rankings, cfg.batch_size)  # noqa: E731
+        vfac = lambda: val_batches(val_ds, val_rankings, cfg.batch_size,  # noqa: E731
+                                   shard_index=rank, num_shards=world)
     ckpt = (CheckpointManager(os.path.join(logger.dir, "ckpt"), keep=cfg.keep_checkpoints)
             if cfg.model_checkpoints else None)
 
@@ -581,7 +617,9 @@ def train(args: argparse.Namespace) -> dict:
     weights_path = os.path.join(logger.dir, "weights.npz")
     save_weights_npz(weights_path, state)
     print(f"weights saved to {weights_path}", flush=True)
-    _post_train_eval(cfg, trainer, state, val_ds, logger)
+    if rank == 0:  # the report forwards on one card; the other ranks wait
+        _post_train_eval(cfg, trainer, state, val_ds, logger)
+    mesh.barrier()
     logger.close()
     return {**out, "weights": weights_path}
 
@@ -625,6 +663,7 @@ def active(args: argparse.Namespace) -> dict:
     from pldepth_torch.train.trainer import Trainer
 
     cfg = _make_config(vars(args))
+    mesh = _join_group(args)
     train_ds, val_ds = _load_data(cfg)
     # the Trainer checks the training options before any file is written
     trainer = Trainer(cfg, max(1, len(train_ds) // cfg.batch_size), device=args.device)
@@ -642,7 +681,13 @@ def active(args: argparse.Namespace) -> dict:
         finally:
             it.close()
     store = None
-    if cfg.data_resident:
+    if cfg.data_resident and mesh.world > 1:
+        # the resident acquisition path maps store rows to ds[i] of a store
+        # that holds the whole pool (the JAX command's rule, cli.py:566-580)
+        print("# --data_resident ignored for the active loop under multi-host "
+              f"(process_count={mesh.world}); using the streaming acquisition path",
+              file=sys.stderr, flush=True)
+    elif cfg.data_resident:
         from pldepth_torch.data.resident import build_resident_store
 
         store = build_resident_store(train_ds, trainer.device)
@@ -731,6 +776,7 @@ def warmup(args: argparse.Namespace) -> dict:
     from pldepth_torch.ops import _build
     from pldepth_torch.train.trainer import Trainer
 
+    mesh = _join_group(args)
     device = resolve_device(args.device)
     cfg = _make_config(vars(args))
     t0 = time.perf_counter()
@@ -740,6 +786,10 @@ def warmup(args: argparse.Namespace) -> dict:
         built.append("packio")
     out = {"cache_dir": str(_build.BUILD_DIR), "built": built,
            "build_s": time.perf_counter() - t0}
+    if mesh.active:  # the group's communicators, set up before any long step
+        from pldepth_torch.core.mesh import warmup_collectives
+
+        out["collectives"] = warmup_collectives(mesh)
 
     def timed(key, fn):
         _sync(device)
@@ -867,5 +917,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 0
 
 
+def launched_main(argv: Optional[List[str]] = None) -> int:
+    """``main``, leaving the process group it may have joined on the way
+    out (the module's entry point; a caller that made the group keeps
+    it)."""
+    from pldepth_torch.core import mesh as mesh_lib
+
+    had_group = mesh_lib.current().active
+    try:
+        return main(argv)
+    finally:
+        if not had_group:
+            mesh_lib.shutdown()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(launched_main())

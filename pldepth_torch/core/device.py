@@ -7,6 +7,7 @@ the CPU must not pass for one taken on the GPU.
 
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
@@ -23,6 +24,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "to run on the CPU"
         )
     return dev
+
+
+def local_cuda_index() -> int:
+    """The card of this process under a launcher: ``LOCAL_RANK`` modulo
+    the cards the host has (0 without a launcher). Ranks beyond the card
+    count share cards (core/mesh.py then takes gloo)."""
+    return int(os.environ.get("LOCAL_RANK", 0)) % max(1, torch.cuda.device_count())
 
 
 def resolve_impl(impl: str, device: DeviceLike) -> str:

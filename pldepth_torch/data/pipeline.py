@@ -161,10 +161,17 @@ def pregenerate_val_rankings(ds: DepthDataset, *, sampler_name: str, rankings_pe
     return np.concatenate(out, axis=0)
 
 
-def val_batches(ds: DepthDataset, rankings: np.ndarray,
-                batch_size: int) -> Iterator[Dict[str, np.ndarray]]:
-    """Fixed-order validation batches carrying pre-generated rankings."""
-    for b in range(len(ds) // batch_size):
-        items = [ds[i] for i in range(b * batch_size, (b + 1) * batch_size)]
-        yield {"image": np.stack([s["image"] for s in items]),
-               "rankings": rankings[b * batch_size:(b + 1) * batch_size]}
+def val_batches(ds: DepthDataset, rankings: np.ndarray, batch_size: int,
+                shard_index: int = 0, num_shards: int = 1) -> Iterator[Dict[str, np.ndarray]]:
+    """Fixed-order validation batches carrying pre-generated rankings.
+    ``shard_index`` / ``num_shards``: this rank's stride of the samples, cut
+    to the common per-shard length (``BatchIterator``'s rule), so every
+    rank yields the same number of batches (``Trainer.eval_step``
+    all-reduces each batch's loss)."""
+    idx = np.arange(len(ds))
+    if num_shards > 1:
+        idx = idx[shard_index::num_shards][:len(ds) // num_shards]
+    for b in range(len(idx) // batch_size):
+        rows = idx[b * batch_size:(b + 1) * batch_size]
+        items = [ds[int(i)] for i in rows]
+        yield {"image": np.stack([s["image"] for s in items]), "rankings": rankings[rows]}

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from pldepth_torch.core.mesh import batch_rand
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
@@ -44,5 +46,5 @@ def random_flip_batch(gen: torch.Generator, images: torch.Tensor, gts: torch.Ten
     """Per-sample horizontal flip (reference augment_fn,
     hourglass_provider.py:34-51): each sample flips with probability 0.5,
     drawn from ``gen`` (the ``jax.random.bernoulli`` draw; other bits)."""
-    flip = torch.rand(images.shape[0], generator=gen, device=gen.device) < 0.5
+    flip = batch_rand(gen, (images.shape[0],), gen.device) < 0.5
     return flip_batch(flip, images, gts, masks)

@@ -23,8 +23,14 @@ Storage layout (6 bytes a pixel):
 
 Batches are uniform draws with replacement: the device analogue of the
 reference's shuffle(1024) + repeat stream, not an epoch permutation (use
-``BatchIterator`` where epoch order matters). One device: sharding the store
-over several cards or processes, and over a spatial axis, is ROADMAP.md
+``BatchIterator`` where epoch order matters).
+
+Data parallelism (``num_shards`` > 1, one process per card): the set is cut
+to a multiple of the shard count, each rank holds the stride
+``shard_index::num_shards`` of it on its card, and ``gt_max`` is the
+ranks' largest (an all-reduce max over the process group) so every shard
+quantizes with one ``gt_scale``; ``Trainer.resident_batch`` draws each
+rank's rows from its own shard. Sharding over a spatial axis is ROADMAP.md
 queue 1 item 11.
 """
 
@@ -37,6 +43,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from pldepth_torch.core import mesh as mesh_lib
 from pldepth_torch.core.device import DeviceLike, resolve_device
 from pldepth_torch.data.datasets import DepthDataset
 
@@ -56,7 +63,7 @@ class ResidentStore:
     the field ``gt_scale`` is the same value as a Python float."""
 
     arrays: Dict[str, torch.Tensor]
-    n: int
+    n: int  # the global sample count held (cut to a multiple of the shards)
     gt_scale: float
 
     @property
@@ -74,34 +81,48 @@ def build_resident_store(ds: DepthDataset, device: DeviceLike = None, *,
                          num_shards: int = 1) -> ResidentStore:
     """Load ``ds`` on the host, quantize it, and upload it to ``device``
     (default ``cuda``). ``max_bytes`` bounds the store; a larger set
-    raises, and the streaming feeds are the way to train on it."""
-    if num_shards > 1:
-        raise NotImplementedError(
-            "a resident store sharded over processes (num_shards > 1; the all-gather "
-            "of gt_max needs a process group) is not ported yet: ROADMAP.md queue 1 item 11")
+    raises, and the streaming feeds are the way to train on it.
+
+    ``num_shards`` > 1: this process holds rows ``shard_index::num_shards``
+    of the first ``len(ds) // num_shards * num_shards`` samples, and
+    ``gt_max`` is all-reduced over the process group (core/mesh.py), which
+    must span the shards (``pldepth_tpu/data/resident.py``)."""
     dev = resolve_device(device)
-    n = len(ds)
+    n = (len(ds) // num_shards) * num_shards
     if n == 0:
-        raise ValueError("an empty dataset has no resident store")
+        raise ValueError(f"dataset of {len(ds)} samples cannot shard over "
+                         f"{num_shards} processes" if len(ds) else
+                         "an empty dataset has no resident store")
+    if n != len(ds):
+        log.info("resident store: truncating %d -> %d samples for even sharding", len(ds), n)
+    mesh = mesh_lib.current()
+    if num_shards > 1 and mesh.world != num_shards:
+        raise ValueError(f"a store of {num_shards} shards needs a process group of "
+                         f"{num_shards} ranks, have {mesh.world}")
     h, w = ds[0]["gt"].shape
     if max_bytes is not None and n * h * w * BYTES_PER_PIXEL > max_bytes:
         raise ValueError(
             f"resident store would need {n * h * w * BYTES_PER_PIXEL / 1e9:.1f} GB "
             f"> max_bytes {max_bytes / 1e9:.1f} GB -- use the streaming pipeline")
 
-    images = np.empty((n, h, w, 3), np.uint8)
-    gts = np.empty((n, h, w), np.float32)
-    masks = np.empty((n, h, w), np.uint8)
-    for i in range(n):
+    local_idx = range(shard_index, n, num_shards)
+    images = np.empty((len(local_idx), h, w, 3), np.uint8)
+    gts = np.empty((len(local_idx), h, w), np.float32)
+    masks = np.empty((len(local_idx), h, w), np.uint8)
+    for row, i in enumerate(local_idx):
         s = ds[i]
         img = s["image"]
         if img.dtype != np.uint8:  # [0, 1] float -> u8 (round half to even)
             img = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
-        images[i] = img
-        gts[i] = s["gt"]
-        masks[i] = (s["mask"] > 0).astype(np.uint8)
+        images[row] = img
+        gts[row] = s["gt"]
+        masks[row] = (s["mask"] > 0).astype(np.uint8)
 
-    gt_max = max(float(gts.max()), 1e-6)
+    # one scale for every shard: the largest gt of all of them
+    gt_max = float(gts.max())
+    if num_shards > 1:
+        gt_max = mesh.max_float(gt_max)
+    gt_max = max(gt_max, 1e-6)
     gt_scale = gt_max / 65535.0
     gt_q = np.clip(np.round(gts / gt_scale), 0, 65535).astype(np.uint16)
 
@@ -109,6 +130,7 @@ def build_resident_store(ds: DepthDataset, device: DeviceLike = None, *,
               for k, x in (("image", images), ("gt", gt_q.view(np.int16)), ("mask", masks))}
     arrays["gt_scale"] = torch.tensor(gt_scale, dtype=torch.float32, device=dev)
     store = ResidentStore(arrays=arrays, n=n, gt_scale=gt_scale)
-    log.info("resident store: %d samples @ %dx%d, %.2f GB on %s (gt_scale %.3e)",
-             n, h, w, store.nbytes / 1e9, dev, gt_scale)
+    log.info("resident store: %d samples @ %dx%d, %.2f GB on %s (gt_scale %.3e%s)",
+             n, h, w, store.nbytes / 1e9, dev, gt_scale,
+             f", shard {shard_index} of {num_shards}" if num_shards > 1 else "")
     return store

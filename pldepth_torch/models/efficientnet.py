@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from pldepth_torch.core.mesh import batch_rand
 from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass, swish
 from pldepth_torch.models.quantize import make_conv
 from pldepth_torch.ops.qres import FusedBNAct, mul_q8
@@ -90,12 +91,14 @@ class SqueezeExcite(nn.Module):
         self.expand = Conv(reduce_ch, ch, 1, dtype=dtype)
         self.dtype, self.qres = dtype, qres
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
         se = x.to(torch.float32).mean(dim=(1, 2), keepdim=True)
         se = swish(self.reduce(se.to(self.dtype)))
         se = self.expand(se)
         gate = torch.sigmoid(se.to(torch.float32)).to(x.dtype)
-        return mul_q8(x, gate) if self.qres == "int8" else x * gate
+        if self.qres == "int8":
+            return mul_q8(x, gate, train.mesh if train is not None else None)
+        return x * gate
 
 
 class MBConv(nn.Module):
@@ -139,7 +142,7 @@ class MBConv(nn.Module):
             expand_act = x  # "blockXa_expand_activation" tap point
         x = self.dw_conv(x)
         x = swish(x) if self.fold else _bn_act(self.dw_bn, x, train, dt, "swish")
-        x = self.se(x)
+        x = self.se(x, train)
         x = self.project_conv(x)
         if not self.fold:
             x = _bn_act(self.project_bn, x, train, dt, None)
@@ -147,7 +150,7 @@ class MBConv(nn.Module):
             if train is not None and self.drop_rate > 0:
                 # drop-path: one Bernoulli(keep) draw per sample
                 keep = 1.0 - self.drop_rate
-                draw = torch.rand(x.shape[0], generator=train.gen, device=x.device)
+                draw = batch_rand(train.gen, (x.shape[0],), x.device)
                 mask = (draw < keep).reshape(-1, 1, 1, 1)
                 x = torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
             x = x + inputs

@@ -12,7 +12,9 @@ A module runs in train mode when its forward is given a :class:`TrainPass`:
 batch-norm then normalises with batch statistics and puts its new running
 statistics into the pass instead of changing its buffers (flax's
 ``mutable=["batch_stats"]``), so the trainer can commit them or keep the
-old ones (the finite guard, train/trainer.py).
+old ones (the finite guard, train/trainer.py). Under data parallelism
+the pass carries the process's mesh (core/mesh.py) and the statistics are
+those of the global batch (:func:`batch_moments`).
 """
 
 from __future__ import annotations
@@ -67,19 +69,48 @@ class Conv(nn.Module):
 @dataclasses.dataclass
 class TrainPass:
     """One train-mode forward: the generator of its drop-path draws (on the
-    activations' device) and the new BN running statistics it makes,
-    {BatchNorm module: (mean, var)}."""
+    activations' device; a ``core.mesh.RowsGenerator`` in the train step),
+    the new BN running statistics it makes, {BatchNorm module: (mean,
+    var)}, and the mesh whose ranks share the batch (None: one process)."""
 
-    gen: Optional[torch.Generator] = None
+    gen: Optional[object] = None
     new_stats: Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
         default_factory=dict)
+    mesh: Optional[object] = None
+
+
+def per_count(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``total / count`` as the device's own ``mean`` forms it: CUDA
+    multiplies the sum by the f32 reciprocal, the CPU divides. A world of
+    one then gives ``mean``'s bits exactly."""
+    return total * torch.reciprocal(count) if total.is_cuda else total / count
+
+
+def batch_moments(x: torch.Tensor, mesh=None):
+    """(mean, x - mean, biased variance) of f32 ``x`` over every axis but
+    the last, by two passes. With a mesh that has a process group they are
+    the global batch's: the local sums and the row count are all-reduced,
+    then the local sums of squared deviations (differentiable all-reduces,
+    so the backward is SyncBN's)."""
+    dims = tuple(range(x.dim() - 1))
+    if mesh is None or not mesh.active:
+        mean = x.mean(dim=dims)
+        y = x - mean
+        return mean, y, torch.square(y).mean(dim=dims)
+    c = x.shape[-1]
+    sums = mesh.sum(torch.cat([x.sum(dim=dims), x.new_full((1,), x.numel() // c)]))
+    count = sums[c]
+    mean = per_count(sums[:c], count)
+    y = x - mean
+    return mean, y, per_count(mesh.sum(torch.square(y).sum(dim=dims)), count)
 
 
 class BatchNorm(nn.Module):
     """flax ``BatchNorm(momentum=0.99, epsilon=1e-3, dtype=float32,
     use_fast_variance=False)``; returns f32. Inference uses the running
     statistics. Train mode uses the batch's mean and two-pass biased
-    variance over (B, H, W), computed in f32, and puts
+    variance over (B, H, W) (the global batch's under a process group),
+    computed in f32, and puts
     ``momentum * running + (1 - momentum) * batch`` into ``train.new_stats``
     (the buffers are left as they are)."""
 
@@ -103,10 +134,7 @@ class BatchNorm(nn.Module):
         if train is None:
             y, var = x - self.running_mean, self.running_var
         else:
-            dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=dims)
-            y = x - mean
-            var = torch.square(y).mean(dim=dims)
+            mean, y, var = batch_moments(x, train.mesh)
             with torch.no_grad():
                 m = self.momentum
                 train.new_stats[self] = (m * self.running_mean + (1 - m) * mean,

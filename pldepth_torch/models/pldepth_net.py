@@ -30,6 +30,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from pldepth_torch.core.device import torch_dtype
+from pldepth_torch.core.mesh import RowsGenerator
 from pldepth_torch.models import resnet
 from pldepth_torch.models.decoders import ReDWebDecoder, SkipConcatDecoder
 from pldepth_torch.models.efficientnet import VARIANTS, EfficientNetEncoder
@@ -46,7 +47,8 @@ def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass):
     run started from; after the first run the pass's generator is where
     that run left it, as without remat. Only the first run's new BN
     statistics go into the pass (the recompute's are the same values and
-    are dropped)."""
+    are dropped). Under a process group the recompute issues its BN
+    all-reduces again, in module order on every rank."""
     gen = train.gen
     start = gen.get_state() if gen is not None else None
     first = True
@@ -54,10 +56,12 @@ def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass):
     def run(x):
         nonlocal first
         g = None
-        if gen is not None:
+        if isinstance(gen, RowsGenerator):
+            g = gen.with_state(start)
+        elif gen is not None:
             g = torch.Generator(device=gen.device)
             g.set_state(start)
-        inner = TrainPass(gen=g)
+        inner = TrainPass(gen=g, mesh=train.mesh)
         out = encoder(x, inner)
         if first:
             first = False

@@ -35,7 +35,7 @@ returns the ``state_dict`` of the ``quant="int8"`` model. Its two halves,
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Mapping, Optional
+from typing import Callable, Dict, Iterable, Mapping, Optional
 
 import torch
 from torch import nn
@@ -215,9 +215,13 @@ def pack_module(module: nn.Module, calib_module: nn.Module) -> Dict[str, torch.T
 
 @torch.no_grad()
 def calibrate(calib_module: nn.Module, packed: Mapping[str, torch.Tensor],
-              calib_batches: Iterable[torch.Tensor]) -> Dict[str, torch.Tensor]:
+              calib_batches: Iterable[torch.Tensor],
+              amax_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
     """Run ``calib_module`` (``quant="calib"``, holding ``packed``) over the
-    normalized batches; returns ``packed`` with the calibrated scales."""
+    normalized batches; returns ``packed`` with the calibrated scales.
+    ``amax_reduce`` maps the stacked per-site maxima to the ones to use
+    (data parallelism: the all-reduce max over the ranks)."""
     sites = quant_sites(calib_module)
     for m in sites.values():
         m.amax = None
@@ -227,7 +231,11 @@ def calibrate(calib_module: nn.Module, packed: Mapping[str, torch.Tensor],
         n += 1
     if n == 0:
         raise ValueError("calibration needs at least one batch")
-    return _write_scales(packed, {name: m.amax for name, m in sites.items()})
+    amax = {name: m.amax for name, m in sites.items()}
+    if amax_reduce is not None:
+        names = list(amax)
+        amax = dict(zip(names, amax_reduce(torch.stack([amax[k] for k in names])).unbind()))
+    return _write_scales(packed, amax)
 
 
 def quantize_variables(module: nn.Module, calib_module: nn.Module,

@@ -4,7 +4,9 @@ and example PNGs under ``examples/``; forwarded to wandb, TensorBoard
 (``torch.utils.tensorboard`` under ``<run>/tb``) and mlflow when the run asks
 for them. Each sink's package is imported when the logger is made; a sink
 that is asked for but cannot be set up logs a warning and the logger stays
-local-only, as the JAX package's does. No API keys in code.
+local-only, as the JAX package's does. No API keys in code. Under a
+process group (core/mesh.py) only rank 0 writes: a logger on another rank
+keeps its summary in memory and writes no file and no sink.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from pldepth_torch.core import mesh as mesh_lib
+
 log = logging.getLogger(__name__)
 
 
@@ -27,15 +31,18 @@ class MetricLogger:
                  wandb_project: str = "pldepth-tpu", use_tensorboard: bool = False,
                  use_mlflow: bool = False, mlflow_tracking_uri: str = ""):
         self.dir = os.path.join(output_dir, run_name)
-        os.makedirs(self.dir, exist_ok=True)
-        self._jsonl = open(os.path.join(self.dir, "metrics.jsonl"), "a")
         self._csv_path = os.path.join(self.dir, "metrics.csv")
         self._csv_fields: Optional[list] = None
-        self._csv_file = None
+        self._jsonl = self._csv_file = None
         self._wandb = None
         self._tb = None
         self._mlflow = None
         self.summary: Dict[str, Any] = {}
+        self.rank = mesh_lib.current().rank
+        if self.rank > 0:
+            return
+        os.makedirs(self.dir, exist_ok=True)
+        self._jsonl = open(os.path.join(self.dir, "metrics.jsonl"), "a")
         if config:
             with open(os.path.join(self.dir, "config.json"), "w") as f:
                 json.dump(config, f, indent=2, default=str)
@@ -71,6 +78,8 @@ class MetricLogger:
                 log.warning("mlflow requested but unavailable (%s); local-only", e)
 
     def log(self, metrics: Dict[str, Any], step: Optional[int] = None):
+        if self._jsonl is None:
+            return
         rec = {"_time": time.time(), **({"step": step} if step is not None else {}), **metrics}
         self._jsonl.write(json.dumps(rec, default=float) + "\n")
         self._jsonl.flush()
@@ -121,6 +130,8 @@ class MetricLogger:
         """wandb.run.summary equivalent (PLDepth.py:190-193): ``summary.json``,
         ``summary/<k>`` scalars to TensorBoard, ``summary_<k>`` to mlflow."""
         self.summary.update(kwargs)
+        if self.rank > 0:
+            return
         with open(os.path.join(self.dir, "summary.json"), "w") as f:
             json.dump(self.summary, f, indent=2, default=float)
         if self._wandb is not None:
@@ -143,6 +154,8 @@ class MetricLogger:
         Values: (H, W) float maps, min-max scaled to u8, or (H, W, 3)
         images in [0, 1], passed through. A PNG that cannot be written (no
         PIL) is logged as a warning and skipped."""
+        if self.rank > 0:
+            return
         ex_dir = os.path.join(self.dir, "examples")
         os.makedirs(ex_dir, exist_ok=True)
         captions = captions or {}
@@ -170,7 +183,8 @@ class MetricLogger:
                                    dataformats="HWC")
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._csv_file:
             self._csv_file.close()
         if self._wandb is not None:

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from pldepth_torch.models.layers import BatchNorm, TrainPass, swish
+from pldepth_torch.models.layers import BatchNorm, TrainPass, batch_moments, per_count, swish
 
 STORES = ("int8", "bf16")
 
@@ -39,9 +39,13 @@ def _apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     raise ValueError(f"unknown act {act!r}")
 
 
-def _q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(int8 r, f32 scale): symmetric per-tensor int8 of f32 ``x``."""
-    amax = torch.clamp(x.abs().amax(), min=1e-12)
+def _q8(x: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int8 r, f32 scale): symmetric per-tensor int8 of f32 ``x`` (the
+    global batch's ``amax`` under a process group)."""
+    amax = x.abs().amax()
+    if mesh is not None:
+        amax = mesh.max(amax)
+    amax = torch.clamp(amax, min=1e-12)
     q = torch.round(x * (torch.full_like(amax, 127.0) / amax))
     return torch.clamp(q, -127, 127).to(torch.int8), amax / 127.0
 
@@ -51,29 +55,27 @@ class BnActTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps: float, act: Optional[str], store: str,
-                out_dtype: torch.dtype):
+                out_dtype: torch.dtype, mesh=None):
         if store not in STORES:
             raise ValueError(f"unknown store {store!r}")
         xf = x.to(torch.float32)
-        dims = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=dims)
-        y = xf - mean
-        var = torch.square(y).mean(dim=dims)
+        mean, y, var = batch_moments(xf, mesh)
         inv = torch.rsqrt(var + eps)
         z = _apply_act((y * (inv * scale) + bias).to(out_dtype), act)
         xhat = y * inv
         if store == "int8":
-            r, r_scale = _q8(xhat)
+            r, r_scale = _q8(xhat, mesh)
         else:
             r, r_scale = xhat.to(torch.bfloat16), torch.ones((), device=x.device)
         ctx.save_for_backward(r, r_scale, inv, scale, bias)
-        ctx.act, ctx.out_dtype, ctx.x_dtype = act, out_dtype, x.dtype
+        ctx.act, ctx.out_dtype, ctx.x_dtype, ctx.mesh = act, out_dtype, x.dtype, mesh
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
     @staticmethod
     def backward(ctx, gz, g_mean, g_var):
         r, r_scale, inv, scale, bias = ctx.saved_tensors
+        mesh = ctx.mesh
         xhat = r.to(torch.float32) * r_scale
         if ctx.act == "swish":
             y = (xhat * scale + bias).to(ctx.out_dtype).to(torch.float32)
@@ -85,23 +87,31 @@ class BnActTrain(torch.autograd.Function):
         n = dy.numel() // dy.shape[-1]
         sum_dy = dy.sum(dim=dims)
         sum_dy_xhat = (dy * xhat).sum(dim=dims)
-        dx = (scale * inv) * (dy - sum_dy / n - xhat * (sum_dy_xhat / n))
-        return dx.to(ctx.x_dtype), sum_dy_xhat, sum_dy, None, None, None, None
+        if mesh is None or not mesh.active:
+            dx = (scale * inv) * (dy - sum_dy / n - xhat * (sum_dy_xhat / n))
+        else:  # SyncBN: the statistics' terms sum over the global batch
+            c = dy.shape[-1]
+            g = mesh.reduce_(torch.cat([sum_dy, sum_dy_xhat, sum_dy.new_full((1,), n)]))
+            dx = (scale * inv) * (dy - per_count(g[:c], g[2 * c])
+                                  - xhat * per_count(g[c:2 * c], g[2 * c]))
+        return dx.to(ctx.x_dtype), sum_dy_xhat, sum_dy, None, None, None, None, None
 
 
 def bn_act_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
-                 act: Optional[str], store: str, out_dtype: torch.dtype):
+                 act: Optional[str], store: str, out_dtype: torch.dtype, mesh=None):
     """Train-mode BN over (B, H, W) of NHWC ``x`` with affine (scale, bias),
     then ``act`` ("swish" or None) in ``out_dtype``; returns (z, batch mean,
     biased batch variance), the statistics without gradient. The backward
-    reads x̂ from its ``store`` ("int8" or "bf16") compression."""
-    return BnActTrain.apply(x, scale, bias, eps, act, store, out_dtype)
+    reads x̂ from its ``store`` ("int8" or "bf16") compression. With a
+    ``mesh`` that has a process group the statistics, the backward's sums
+    and the int8 ``amax`` are the global batch's (core/mesh.py)."""
+    return BnActTrain.apply(x, scale, bias, eps, act, store, out_dtype, mesh)
 
 
 class MulQ8(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z, gate):
-        r, r_scale = _q8(z.to(torch.float32))
+    def forward(ctx, z, gate, mesh=None):
+        r, r_scale = _q8(z.to(torch.float32), mesh)
         ctx.save_for_backward(r, r_scale, gate)
         ctx.z_dtype = z.dtype
         return z * gate
@@ -111,13 +121,14 @@ class MulQ8(torch.autograd.Function):
         r, r_scale, gate = ctx.saved_tensors
         zq = (r.to(torch.float32) * r_scale).to(ctx.z_dtype)
         dgate = (go * zq).to(torch.float32).sum(dim=(1, 2), keepdim=True).to(gate.dtype)
-        return go * gate, dgate
+        return go * gate, dgate, None
 
 
-def mul_q8(z: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+def mul_q8(z: torch.Tensor, gate: torch.Tensor, mesh=None) -> torch.Tensor:
     """``z * gate`` (the SE excitation, ``gate`` (B, 1, 1, C)) whose backward
-    reads ``z`` from a per-tensor int8 copy."""
-    return MulQ8.apply(z, gate)
+    reads ``z`` from a per-tensor int8 copy (the global batch's ``amax``
+    under a process group)."""
+    return MulQ8.apply(z, gate, mesh)
 
 
 class FusedBNAct(BatchNorm):
@@ -139,7 +150,7 @@ class FusedBNAct(BatchNorm):
         if train is None:
             return _apply_act(super().forward(x).to(self.out_dtype), self.act)
         z, mean, var = bn_act_train(x, self.weight, self.bias, self.eps, self.act,
-                                    self.store, self.out_dtype)
+                                    self.store, self.out_dtype, train.mesh)
         with torch.no_grad():
             m = self.momentum
             train.new_stats[self] = (m * self.running_mean + (1 - m) * mean,

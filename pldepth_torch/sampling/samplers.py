@@ -24,7 +24,10 @@ treats any other name as ``rejection``).
 
 Random bits come from a ``torch.Generator`` on the data's device; they
 differ from threefry's, so parity with the JAX package is exact given the
-same uniforms or candidates, and distributional otherwise.
+same uniforms or candidates, and distributional otherwise. Every draw's
+shape depends on the batch size only (the rejection method's 16 rounds
+too), so a ``core.mesh.RowsGenerator`` can draw at the global batch's
+shape and keep one rank's rows.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Dict, Optional
 
 import torch
 
+from pldepth_torch.core.mesh import batch_rand, batch_randint
 from pldepth_torch.sampling.relations import depth_relation
 
 _EQUALITY_PENALTY = -1000.0
@@ -94,11 +98,11 @@ def masked_uniform_points(gen: torch.Generator, mask_flat: torch.Tensor, n_point
     b, hw = mask_flat.shape
     dev = mask_flat.device
     if method != "rejection":
-        u = torch.rand((b, n_points), generator=gen, device=dev)
+        u = batch_rand(gen, (b, n_points), dev)
         return draw_from_uniform(u, mask_flat)
     rounds = 16
     valid = _valid(mask_flat)
-    cands = torch.randint(0, hw, (b, rounds, n_points), generator=gen, device=dev)
+    cands = batch_randint(gen, hw, (b, rounds, n_points), dev)
     ok = torch.gather(valid, 1, cands.reshape(b, -1)).reshape(b, rounds, n_points)
     first = torch.argmax(ok.to(torch.int32), dim=1, keepdim=True)
     chosen = torch.gather(cands, 1, first)[:, 0]
@@ -145,10 +149,10 @@ def _segment_draw(gen, gt, mask, n_cand: int, k: int, draw_method: str) -> torch
     counts = counts.scatter_add_(1, seg_flat, torch.ones_like(seg_flat))[:, :n_seg]
     starts = torch.cumsum(counts, dim=-1) - counts
 
-    seg_scores = torch.rand((b, n_cand, n_seg), generator=gen, device=gt.device)
+    seg_scores = batch_rand(gen, (b, n_cand, n_seg), gt.device)
     seg_scores = torch.where(counts[:, None, :] > 0, seg_scores, -1.0)
     chosen = torch.topk(seg_scores, k, dim=-1).indices.reshape(b, -1)  # (B, n_cand * k)
-    u = torch.rand((b, n_cand * k), generator=gen, device=gt.device)
+    u = batch_rand(gen, (b, n_cand * k), gt.device)
     cnt = torch.gather(counts, 1, chosen)
     offs = torch.gather(starts, 1, chosen) + (u * cnt.to(torch.float32)).to(torch.int64)
     idx = torch.gather(perm, 1, torch.clamp(offs, 0, hw - 1))

@@ -10,6 +10,10 @@
   before ``save`` returns), so a run that exits right after one loses
   nothing; ``best_val.json`` keeps the best validation loss across
   ``--resume`` (``maybe_save_best``, Keras save_best_only semantics).
+
+Under a process group (core/mesh.py) the ranks hold the same state: rank 0
+writes, every rank waits at a barrier until the file is in place, and every
+rank restores from the same directory.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from pldepth_torch.core import mesh as mesh_lib
 from pldepth_torch.models.pretrained import load_backbone, save_backbone
 
 log = logging.getLogger(__name__)
@@ -33,7 +38,10 @@ _CKPT = re.compile(r"^step_(\d+)\.pt$")
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh_lib.current()
+        if self.mesh.rank == 0:
+            os.makedirs(self.directory, exist_ok=True)
+        self.mesh.barrier()
         self.keep = max(1, keep)
         self._best_path = os.path.join(self.directory, "best_val.json")
         self.best_val = float("inf")
@@ -51,6 +59,11 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_{step:09d}.pt")
 
     def save(self, step: int, state, metrics: Optional[dict] = None) -> None:
+        if self.mesh.rank == 0:
+            self._write(step, state, metrics)
+        self.mesh.barrier()
+
+    def _write(self, step: int, state, metrics: Optional[dict]) -> None:
         payload = {
             "step": int(state.step), "seed": int(state.seed),
             "model": state.model.state_dict(),
@@ -67,8 +80,9 @@ class CheckpointManager:
         """save_best_only semantics on val_loss (tracking_utils.py:27-30)."""
         if val_loss < self.best_val:
             self.best_val = val_loss
-            with open(self._best_path, "w") as f:
-                json.dump({"best_val": float(val_loss), "step": int(step)}, f)
+            if self.mesh.rank == 0:
+                with open(self._best_path, "w") as f:
+                    json.dump({"best_val": float(val_loss), "step": int(step)}, f)
             self.save(step, state, metrics={"val_loss": val_loss})
             return True
         return False
@@ -97,8 +111,12 @@ class CheckpointManager:
 
 
 def save_weights_npz(path: str, state) -> None:
-    """Write ``state.model``'s params and batch stats as flax-layout npz."""
-    save_backbone(path, state.model)
+    """Write ``state.model``'s params and batch stats as flax-layout npz
+    (rank 0 under a process group; every rank returns once it is written)."""
+    mesh = mesh_lib.current()
+    if mesh.rank == 0:
+        save_backbone(path, state.model)
+    mesh.barrier()
 
 
 def load_weights_npz(path: str, state):

@@ -55,6 +55,13 @@ class AmsGradState:
         return cls(**{f.name: d.get(f.name) for f in dataclasses.fields(cls)})
 
 
+def flat_grad(params: List[torch.Tensor]) -> torch.Tensor:
+    """The params' ``.grad`` as one flat f32 tensor (a missing grad is 0):
+    the buffer the data-parallel step all-reduces."""
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params]).to(torch.float32)
+
+
 class AmsGrad:
     def __init__(self, schedule: Callable, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-7, every_k: int = 1):
@@ -77,13 +84,13 @@ class AmsGrad:
 
     @torch.no_grad()
     def step(self, params: List[torch.Tensor], state: AmsGradState,
-             finite: torch.Tensor) -> torch.Tensor:
-        """Apply one (micro-)step from each param's ``.grad`` (a missing grad
-        is 0) in place, unless ``finite`` is False or a grad is not finite;
-        then params and state keep their values. Returns the combined flag."""
+             finite: torch.Tensor, grad: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Apply one (micro-)step in place from ``grad``, the flat f32
+        gradient (default: :func:`flat_grad` of the params' ``.grad``),
+        unless ``finite`` is False or a gradient element is not finite; then
+        params and state keep their values. Returns the combined flag."""
         b1, b2 = self.b1, self.b2
-        g = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                       for p in params]).to(torch.float32)
+        g = flat_grad(params) if grad is None else grad
         finite = finite & torch.isfinite(g).all()
         commit = finite
         if self.every_k > 1:

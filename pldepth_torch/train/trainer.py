@@ -18,8 +18,22 @@ resident store (data/resident.py): no batch data crosses the host link.
 The JAX state is an immutable pytree; here the weights live in an
 ``nn.Module`` that the state holds, and the train step updates that module
 and its optimizer state in place (no copy of the weights per step) and
-returns a state whose ``step`` has advanced. One device only; multi-GPU
-data parallelism is ROADMAP.md queue 1 item 11.
+returns a state whose ``step`` has advanced.
+
+Data parallelism (core/mesh.py): one process per card, ``self.mesh`` its
+place in the group. Each rank steps on its own rows (streaming: the
+``cfg.batch_size`` rows its sharded feed gives; resident: ``batch_size //
+W`` rows drawn from its shard of the store), and every reduction over the
+batch is over the global batch, as under the JAX package's sharded step:
+BN statistics (models/layers.py ``batch_moments``), the loss (each rank's
+mean NLL scaled by 1/W, so the ranks' sum is the global mean; the reported
+loss is the all-reduced global mean), the gradient (one flat all-reduce
+before the finite guard, so every rank accepts or refuses the step alike),
+the random draws (made at the global batch's shape, each rank keeping its
+rows), the eval loss and the int8 calibration maxima. The ranks' states
+stay bit-equal; ``replicate`` copies rank 0's state after init and
+restore. With no process group every one of these is the single-process
+step, unchanged.
 
 The single-device training options of the JAX package: ``grad_accum``
 (train/optim.py, optax ``MultiSteps``), ``remat_encoder``
@@ -48,6 +62,8 @@ from torch import nn
 
 from pldepth_torch.core.config import ExperimentConfig, sampler_name_for_type
 from pldepth_torch.core.device import DeviceLike, resolve_device
+from pldepth_torch.core.mesh import Mesh, RowsGenerator, make_mesh
+from pldepth_torch.core.mesh import pad_to_batch  # noqa: F401  (importable here, as before)
 from pldepth_torch.core.rng import generator
 from pldepth_torch.data.preprocess import normalize_images, random_flip_batch
 from pldepth_torch.data.resident import decode_gt
@@ -60,13 +76,13 @@ from pldepth_torch.models.pldepth_net import (
 from pldepth_torch.ops.listmle import pl_ranking_loss, pl_ranking_loss_from_scores
 from pldepth_torch.ops.sparse_tail import pixels_of
 from pldepth_torch.sampling import sample_rankings_batch
-from pldepth_torch.train.optim import AmsGrad, AmsGradState
+from pldepth_torch.train.optim import AmsGrad, AmsGradState, flat_grad
 from pldepth_torch.train.schedules import build_schedule
 
 log = logging.getLogger(__name__)
 
 # training options of the JAX package that later slices port
-_NOT_PORTED_OPTIONS = (("spatial_sharding", "item 11"),)
+_NOT_PORTED_OPTIONS = (("spatial_sharding", "item 11, spatial sharding"),)
 
 
 def check_ported_options(cfg: ExperimentConfig) -> None:
@@ -78,7 +94,7 @@ def check_ported_options(cfg: ExperimentConfig) -> None:
                 f"{name}={getattr(cfg, name)!r} is not ported yet: ROADMAP.md queue 1 {item}")
     if cfg.mesh.model != 1:
         raise NotImplementedError(
-            "a mesh model axis (spatial sharding) is not ported yet: ROADMAP.md queue 1 item 11")
+            "a mesh model axis is not ported yet: ROADMAP.md queue 1 item 11, spatial sharding")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,11 +152,16 @@ class _HostResult:
 
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int = 1,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[Mesh] = None):
+        """``mesh``: the process's place in a data-parallel group (default:
+        core/mesh.py ``make_mesh(cfg.mesh)`` of the process's group, a world
+        of one without a group); ``device`` defaults to the mesh's card."""
         self.cfg = cfg
         self.steps_per_epoch = max(1, steps_per_epoch)
-        self.device = resolve_device(device)
         check_ported_options(cfg)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
+        self.device = resolve_device(
+            self.mesh.device if device is None and self.mesh.active else device)
         self.model = get_pl_depth_net(
             cfg.model_name, cfg.compute_dtype, fused_tail=cfg.fused_tail,
             head_ch=cfg.decoder_head_ch, remat=cfg.remat_encoder, qres=cfg.qres or None,
@@ -191,9 +212,21 @@ class Trainer:
 
             pretrained.load_backbone(self.cfg.pretrained_path, module)
         freeze_params(module, self.cfg.freeze_encoder)
-        return TrainState(step=0, model=module,
-                          opt=self.optimizer.init(trainable_params(module)),
-                          seed=self.cfg.seed)
+        return self.replicate(TrainState(step=0, model=module,
+                                         opt=self.optimizer.init(trainable_params(module)),
+                                         seed=self.cfg.seed))
+
+    def replicate(self, state: TrainState) -> TrainState:
+        """Rank 0's weights, BN statistics and optimizer state on every rank
+        (``pldepth_tpu`` ``Trainer.replicate``): after init, a restore or a
+        weights load. Seeded init already agrees; this is the guard. The
+        identity with no process group."""
+        if self.mesh.active:
+            tensors = list(state.model.state_dict().values())
+            if state.opt is not None:
+                tensors += list(state.opt.state_dict().values())
+            self.mesh.broadcast_(tensors)
+        return state
 
     # ------------------------------------------------------------------
     # steps
@@ -209,8 +242,11 @@ class Trainer:
             out[k] = t.to(torch.float32)
         return out
 
-    def _gen(self, state: TrainState, tag: str) -> torch.Generator:
-        return generator(state.seed, f"train/{tag}", state.step, self.device)
+    def _gen(self, state: TrainState, tag: str) -> RowsGenerator:
+        """The step's generator of ``tag``; its batch draws are made at the
+        global batch's shape and this rank keeps its rows."""
+        return RowsGenerator(generator(state.seed, f"train/{tag}", state.step, self.device),
+                             self.mesh.rank, self.mesh.data)
 
     @torch.no_grad()
     def _rankings(self, state: TrainState, b: Dict[str, torch.Tensor]):
@@ -238,7 +274,7 @@ class Trainer:
         params = trainable_params(module)
         self._clear_serving_caches()  # the weights change in place
         x = normalize_images(images, self.model.preprocess)
-        train = TrainPass(gen=self._gen(state, "droppath"))
+        train = TrainPass(gen=self._gen(state, "droppath"), mesh=self.mesh)
         kw = {}
         if cfg.sparse_tail:  # the head at the ranked pixels, scores in rankings order
             kw["pixels"] = pixels_of(rankings, x.shape[2])
@@ -251,10 +287,16 @@ class Trainer:
             loss = pl_ranking_loss_from_scores(pred, rankings, impl=cfg.listmle_impl)
         else:
             loss = pl_ranking_loss(pred, rankings, impl=cfg.listmle_impl)
-        loss.backward()
+        mesh = self.mesh
+        # each rank's share of the global mean (K1 means over its own lists)
+        (loss * (1.0 / mesh.data) if mesh.active else loss).backward()
         loss = loss.detach()
         with torch.no_grad():
-            finite = self.optimizer.step(params, state.opt, torch.isfinite(loss))
+            grad = flat_grad(params)
+            if mesh.active:
+                mesh.reduce_(grad)
+                loss = mesh.reduce_(loss.clone()) / mesh.data
+            finite = self.optimizer.step(params, state.opt, torch.isfinite(loss), grad=grad)
             for bn, new in train.new_stats.items():
                 for buf, v in zip((bn.running_mean, bn.running_var), new):
                     buf.copy_(torch.where(finite, v, buf))
@@ -316,12 +358,20 @@ class Trainer:
         replacement by a generator on the store's device keyed by (seed,
         "train/resident", step), gathered, and gt decoded there (``u16 *
         gt_scale``, the scale a device tensor); image and mask stay uint8
-        for ``_to_device``. ``idx`` injects the rows."""
+        for ``_to_device``. ``idx`` injects the rows. Under a process group
+        ``batch_size`` is the global batch: each rank draws ``batch_size //
+        W`` rows from its shard, rank r > 0 with r folded into the key (the
+        JAX draw's ``fold_in(key, axis_index)``)."""
         image = arrays["image"]
         if idx is None:
-            gen = generator(state.seed, "train/resident", state.step, image.device)
-            idx = torch.randint(0, image.shape[0], (self.cfg.batch_size,), generator=gen,
-                                device=image.device)
+            data, rank = self.mesh.data, self.mesh.rank
+            if self.cfg.batch_size % data:
+                raise ValueError(
+                    f"batch_size {self.cfg.batch_size} not divisible by data axis {data}")
+            tag = "train/resident" + (f"/{rank}" if rank else "")
+            gen = generator(state.seed, tag, state.step, image.device)
+            idx = torch.randint(0, image.shape[0], (self.cfg.batch_size // data,),
+                                generator=gen, device=image.device)
         return {"image": image.index_select(0, idx),
                 "gt": decode_gt(arrays["gt"].index_select(0, idx), arrays["gt_scale"]),
                 "mask": arrays["mask"].index_select(0, idx)}
@@ -359,10 +409,14 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch) -> torch.Tensor:
         """Loss of the inference forward (running statistics) on an
-        {"image", "rankings"} batch: K1 forward only."""
+        {"image", "rankings"} batch: K1 forward only. Under a process group
+        each rank passes its rows and gets the global mean."""
         b = self._to_device(batch)
         pred = state.model(normalize_images(b["image"], self.model.preprocess))
-        return pl_ranking_loss(pred, b["rankings"], impl=self.cfg.listmle_impl)
+        loss = pl_ranking_loss(pred, b["rankings"], impl=self.cfg.listmle_impl)
+        if self.mesh.active:
+            loss = self.mesh.reduce_(loss.clone()) / self.mesh.data
+        return loss
 
     def _images(self, images) -> torch.Tensor:
         x = torch.as_tensor(images, dtype=torch.float32)
@@ -441,7 +495,8 @@ class Trainer:
         format ``predict`` takes; activation scales calibrate on them. The
         weights are BN-folded and quantized once per state's model (cached);
         each call returns a new state with its own scales, sharing the
-        packed weights."""
+        packed weights. Under a process group each rank calibrates on its
+        own batches and the maxima are the ranks' largest."""
         from pldepth_torch.models.quantize import calibrate, pack_module
 
         module = state.model
@@ -455,7 +510,10 @@ class Trainer:
         calib, packed = self._cached(self._packed, module, make)
         batches = calib_images if isinstance(calib_images, (list, tuple)) else [calib_images]
         with torch.no_grad():
-            qsd = calibrate(calib, packed, (self._images(b) for b in batches))
+            # under a process group every rank packs the same scales: the
+            # calibration maxima are all-reduced over the ranks' batches
+            qsd = calibrate(calib, packed, (self._images(b) for b in batches),
+                            amax_reduce=self.mesh.max if self.mesh.active else None)
         qmodel = self.model.make(quant="int8")
         qmodel.load_state_dict(qsd, assign=True)
         return QuantState(model=qmodel.eval())
@@ -588,7 +646,14 @@ class Trainer:
         (pass None). ``cfg.resident_chain_steps`` steps run per
         ``resident_chain`` call; ``on_step_end`` still fires every
         ``log_every`` steps, and request_stop() lands between chains. Resume
-        stays exact: the draws are a pure function of (seed, step)."""
+        stays exact: the draws are a pure function of (seed, step).
+
+        Under a process group every rank runs ``fit`` on its own feed: the
+        losses, the finite flags and the validation loss are the global
+        ones, so every rank makes the same NaN and epoch decisions; a stop
+        asked on any rank (SIGTERM, ``request_stop``) stops every rank at
+        the same step; ``ckpt`` writes on rank 0 only (train/checkpoint.py)
+        and ``ips`` counts the global batch."""
         epochs = epochs if epochs is not None else self.cfg.epochs
         history: Dict[str, list] = {"loss": [], "val_loss": [], "lr": [], "ips": []}
         start_step = state.step
@@ -598,6 +663,9 @@ class Trainer:
             log.info("resuming at step %d (epoch %d + %d steps)", start_step, start_epoch, offset)
         resident = resident_store is not None
         chain_n = max(1, self.cfg.resident_chain_steps) if resident else 1
+        # the global batch: resident batch_size is global, a streaming feed
+        # gives batch_size rows to each rank
+        rows_per_step = self.cfg.batch_size * (1 if resident else self.mesh.data)
         preempted = False
         for cb in callbacks:
             cb.on_train_begin(self)
@@ -627,7 +695,9 @@ class Trainer:
                                                    {"loss": float(metrics.loss.reshape(-1)[j]),
                                                     "lr": float(metrics.lr.reshape(-1)[j])})
                     step_i += k
-                    if self._stop_requested:
+                    # the ranks agree: a stop asked on any rank stops all
+                    # of them at this step (a host all-reduce, no card sync)
+                    if self.mesh.any(self._stop_requested):
                         preempted = True
                         break
                 losses = ([float(x) for x in torch.cat([m.loss.reshape(-1)
@@ -643,7 +713,7 @@ class Trainer:
                 history["loss"].append(float(np.mean(losses)) if losses else float("nan"))
                 history["lr"].append(float(metrics_all[-1].lr.reshape(-1)[-1])
                                      if metrics_all else float("nan"))
-                history["ips"].append(n_steps * self.cfg.batch_size / dt)
+                history["ips"].append(n_steps * rows_per_step / dt)
 
                 if preempted:
                     if ckpt is not None:
@@ -676,11 +746,3 @@ class Trainer:
             cb.on_train_end(self, state, history)
         return state, history
 
-
-def pad_to_batch(a: np.ndarray, batch_size: int, fill: float = 0.0) -> np.ndarray:
-    """Pad the leading axis up to ``batch_size`` with ``fill``
-    (``pldepth_tpu/core/mesh.py:pad_to_batch``)."""
-    pad = batch_size - a.shape[0]
-    if pad <= 0:
-        return a
-    return np.concatenate([a, np.full((pad, *a.shape[1:]), fill, a.dtype)])

@@ -794,3 +794,37 @@ def test_profile_trace_of_a_card_step_holds_the_fused_k1(cuda_device, tmp_path):
     assert smoke.k1_trace_counts(kernels) == {"ranking_loss_fwd": 1, "ranking_loss_bwd": 1,
                                               "listmle_fwd": 0, "listmle_bwd": 0}
     assert sum(kernels.values()) > 20
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_the_card_match_the_single_process_step(cuda_device):
+    """chip_smoke.py phase 18b at the smoke size: two ranks share the card
+    over gloo (each a child process with torchrun's variables), 4 rows a
+    rank of ff_smoke at 64^2 (f32, frozen encoder, info_score, K 5),
+    against the single-process batch-8 steps on the same rows: the step-1
+    loss, the first all-reduced flat gradient and the new BN running
+    statistics within phase 18's bounds, the ranks' states bit-equal, K1
+    one fused forward and backward a rank a step."""
+    import os
+    import sys
+    import tempfile
+
+    from pldepth_torch.train import Trainer
+
+    smoke = _chip_smoke()
+    ref = smoke.dp_steps(Trainer(smoke.dp_smoke_config(smoke.DP_SMOKE_BATCH), smoke.DP_STEPS),
+                         smoke.dp_batches(smoke.DP_SMOKE_BATCH, smoke.DP_SMOKE_SIZE,
+                                          smoke.DP_STEPS))
+    with tempfile.TemporaryDirectory() as out:
+        smoke.spawn_ranks([sys.executable, smoke.__file__, "--dp_child", "18b-smoke",
+                           "--dp_out", out], 2, 2, "18b-smoke", timeout=300)
+        ranks = [torch.load(os.path.join(out, f"18b-smoke_r{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    for rank in ranks:
+        assert rank["backend"] == "gloo"
+        gaps = smoke.dp_gaps(rank, ref)
+        assert all(gaps[k] <= smoke.DP_TOL[k] for k in smoke.DP_TOL), gaps
+        assert rank["k1"] == {"ranking_loss_fwd": smoke.DP_STEPS,
+                              "ranking_loss_bwd": smoke.DP_STEPS}
+    for k, v in ranks[0]["state"].items():
+        assert torch.equal(v, ranks[1]["state"][k]), k
