@@ -140,7 +140,7 @@ Phases (any failure exits non-zero):
      refuses another batch, cli serve --artifact --once true over 32 PNGs
      writes the in-process artifact's maps exactly; ms per batch and served
      img/s beside predict_bnfold. Then configs/ff_effnet_448.json at batch
-     32 for 10 steps each: plain, grad_accum 2, remat_encoder, sparse_tail,
+     32 for 6 steps each: plain, grad_accum 2, remat_encoder, sparse_tail,
      qres int8, qres bf16, qenc bf16, qenc int8, and ff_redweb with
      sparse_tail at batch 4: the loss of every step, ms a step (events),
      peak memory, the idle share of a 1-step window; gates: finite losses;
@@ -181,10 +181,10 @@ Phases (any failure exits non-zero):
      <run>/profile, K1 launches of the command = 1 + 3 profiled + fit steps
      + val batches, weights.npz, the event file where tensorboard imports;
      trace MB and device ms a traced step; (b) cli sweep --search tpe
-     --num_runs 6 --space base on 16 images a run: every record error-free
+     --num_runs 5 --space base on 16 images a run: every record error-free
      with a finite test_error, each run's steps as its draw gives them, K1
-     launches = the runs' steps; resumed with --num_runs 7: one more
-     record, the first six lines byte-equal; then --search random
+     launches = the runs' steps; resumed with --num_runs 6: one more
+     record, the first five lines byte-equal; then --search random
      --num_runs 2 --space large_rankings (K 25-500 in a 448^2 step):
      finite, error-free; seconds, peak memory and ms a step of each run;
      (c) cli analyze on (b)'s state file names the least test_error (plots
@@ -210,9 +210,25 @@ Phases (any failure exits non-zero):
      config #5's model (ff_effnet_b4,
      640^2, K 10, RPI 100, unfrozen, SGDR, bf16) at 8 rows a rank, mesh
      data 2 in place of 16: 3 finite steps, the ranks equal, ms a step, ms
-     in collectives, peak GB a rank; (d) cli train at two ranks on 64
+     in collectives, peak GB a rank; (d) cli train at two ranks on 32
      scenes at 448^2 with --data_resident true: each rank's store bytes,
      one gt_scale on both, weights.npz from rank 0 loaded back and served.
+ 19. spatial sharding (ops/halo.py, the mesh's model axis), ranks as in
+     18, every time printed as "ranks share 1 card over gloo, not a scaling
+     figure": the single-process steps first, alone on the card, then at
+     data 1 x model 2 (19a) and x model 4 (19b: a deepest level of
+     4/4/4/2 rows) config #1 (ff_effnet 448^2 batch 32; f32, and bf16 at
+     model 2) and (19c) config #5's model (ff_effnet_b4 640^2 at 8 rows,
+     unfrozen; f32 at model 2, bf16 at both) on the same global batches, 2
+     steps each: step-1 loss, the first all-reduced flat gradient and the
+     new BN statistics within SP_TOL (f32 and bf16 bounds; config #5's
+     bf16 reported beside the gaps one f32 rounding of its BN statistics
+     makes in one process), the ranks' states bit-equal (sha256), K1 one
+     fused forward and one backward in every rank's step; ms of step 2,
+     ms a step in collectives, peak GB a rank beside one process's;
+     (d) cli train --mesh_model 2 --spatial_sharding true --data_resident
+     true on 32 scenes at 448^2: each rank's store of its rows, one
+     gt_scale, weights.npz from rank 0 loaded back and served.
 The line before the last is the {"kernels": [...]} record; the last is
 {"ok": true, "device": {...}}. ``--out`` also writes every number as JSON.
 """
@@ -222,6 +238,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import os
@@ -242,9 +259,10 @@ TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # max|ref| at K=500, 1.1e-6 at K<=25); max|d| <= K1_ATOL + K1_RTOL * max|ref|
 K1_RTOL, K1_ATOL = 3e-5, 1e-5
 K1_SHAPES = [(n, k) for k in (3, 5, 25, 128, 500) for n in (1, 257, 3200)]
-# K1 timed at the main path's (ff_effnet batch 32, ff_redweb batch 4, RPI
-# 100, K 5), at 12800 lists of K 10, and at K 500
-K1_TIME_SHAPES = [(3200, 5), (400, 5), (12800, 10), (3200, 500)]
+# K1 timed at the main path's (ff_effnet batch 32, RPI 100, K 5) and at K
+# 500 (ff_redweb's batch 4 and 12800 lists of K 10 cut to keep the script
+# inside its time limit with phase 19; their last times are in PERF.md)
+K1_TIME_SHAPES = [(3200, 5), (3200, 500)]
 K1_MAIN = "3200x5"  # the kernels line's K1 rows: ff_effnet's train step at batch 32
 LOSS_PATHS = (("ff_effnet", 32), ("ff_redweb", 4))  # (model, batch) at 448^2, RPI 100, K 5
 EFFNET_CONFIG, REDWEB_CONFIG = "ff_effnet_448.json", "ff_redweb_448.json"
@@ -889,7 +907,7 @@ def train_times(trainer, state, cfg, smi: str, device="cuda"):
     samples = {"k1": [], "plain": []}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for r in range(6):
+    for r in range(4):
         for name in (("k1", "plain") if r % 2 == 0 else ("plain", "k1")):
             tr = trainer if name == "k1" else plain
             samples[name].append(cuda_ms(lambda: steps(tr, 1), reps=5, warmup=1))
@@ -1204,10 +1222,10 @@ def fused_k1_times(smi: str, n: int, k: int, floor_ms: float, device="cuda", rep
     return out
 
 
-# the layout sweep's K: both layouts where the thread one takes K (5, 10),
-# the warp layout at 32 and 500 (25, 64 and 128 cut to keep the script
-# inside its time limit with phase 18)
-K1_SWEEP_KS = (5, 10, 32, 500)
+# the layout sweep's K: both layouts where the thread one takes K (5), the
+# warp layout at 32 (10, 25, 64, 128 and 500 cut to keep the script inside
+# its time limit with phases 18 and 19; K 500 is timed above)
+K1_SWEEP_KS = (5, 32)
 
 
 def k1_sweep(smi: str, n: int = BATCH_TRAIN * 100, ks=K1_SWEEP_KS,
@@ -2813,7 +2831,7 @@ def data_path_phase(smi: str, device="cuda", size=SIZE, batch=BATCH_TRAIN, n=DAT
 
 
 # phase 15: export and the training options ------------------------------------------
-OPT_STEPS = 10  # train steps of each option run
+OPT_STEPS = 6  # train steps of each option run (10 until the phase-19 slice)
 EXPORT_TOL = {"bfloat16": 3e-2, "float32": 1e-5}  # artifact vs predict_bnfold, max rel
 EXPORT_POLY_BATCHES = (1, 3, 8)
 ARTIFACT_CHILD = r"""
@@ -3682,7 +3700,8 @@ def phase16(smi: str) -> dict:
 PROFILE_N, PROFILE_BATCH, PROFILE_STEPS = 480, 32, 3
 # 17b: sweep runs on SWEEP_N images (15 train, 1 val); the base space draws batch
 # 4 / 6 / 8 and 10-30 epochs: 10 to 90 steps a run
-SWEEP_N, SWEEP_TPE_RUNS, SWEEP_LARGE_RUNS, SWEEP_LARGE_EPOCHS = 16, 6, 2, 2
+# TPE draws at random below 4 scored runs: runs 5 and the resumed 6th use it
+SWEEP_N, SWEEP_TPE_RUNS, SWEEP_LARGE_RUNS, SWEEP_LARGE_EPOCHS = 16, 5, 2, 2
 WARMUP_N, WARMUP_BATCH, WARMUP_SERVE = 40, 32, 8  # 17d: cli train after warmup: 1 step
 WARMUP_BUILT = sorted(["banded_mbconv", "fused_mbconv", "listmle", "quant_matmul", "packio"])
 
@@ -3869,7 +3888,7 @@ def sweep_phase(smi: str, ds, device="cuda", size=SIZE, n=SWEEP_N, config=None) 
     resumed to 7), then --search random over large_rankings (2 runs of
     SWEEP_LARGE_EPOCHS epochs): every record error-free and finite, each
     run's steps as its draw gives them, K1 launches = the runs' steps, the
-    resume adds one record and keeps the first six byte-equal; seconds,
+    resume adds one record and keeps the first five byte-equal; seconds,
     peak memory and ms a step of each run. Phase 17c: cli analyze on the
     TPE state file names the least test_error."""
     import numpy as np
@@ -4054,7 +4073,7 @@ def phase17(smi: str) -> dict:
 # place of 16; cli train on DP_SCENES scenes. Two ranks share the one card
 # over gloo (NCCL refuses two ranks on one GPU): no time here is a scaling
 # figure.
-DP_STEPS, DP_BATCH, DP_B4_ROWS, DP_SCENES, DP_CLI_BATCH = 3, 32, 8, 64, 8
+DP_STEPS, DP_BATCH, DP_B4_ROWS, DP_SCENES, DP_CLI_BATCH = 3, 32, 8, 32, 8
 DP_B4_CONFIG = "ff_effnet_b4_640_v5e16.json"
 SHARED = "2 ranks share 1 card, not a scaling figure"
 # 18a / 18b against the single-process step: step-1 loss rel, the first
@@ -4090,16 +4109,29 @@ def dp_batches(rows: int, size: int, n: int, seed: int = 18):
             for _ in range(n)]
 
 
-def dp_steps(trainer, batches) -> dict:
+def state_digest(state) -> str:
+    """sha256 of the bits of every tensor of a train state (weights, BN
+    statistics, optimizer state)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in [*state.model.state_dict().values(), *state.opt.state_dict().values()]:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_steps(trainer, batches, digest: bool = False) -> dict:
     """One train step per batch from ``trainer``'s seeded state, each on
-    this rank's block of the global batch (``trainer.mesh``). Returns the
+    this rank's part of the global batch (``trainer.shard_batch``: its data
+    index's block, and under spatial sharding its image rows). Returns the
     losses; the first step's flat gradient as the optimizer took it
     (all-reduced under a group; without the decoder conv biases that feed
     a batch-statistics BN, whose true gradient is 0, as ``trainable_flat``
     leaves them out); every BN's new running statistics after step 1; the
-    final state (host); the K1 launches (counts from 0); ms a step (CUDA
-    events); ms a step in the mesh's collectives (host clock around each:
-    a collective staged through host memory first waits for the card to
+    final state (host; with ``digest`` its sha256 instead); the K1 launches
+    (counts from 0); ms a step (CUDA events); ms a step in the mesh's
+    collectives (host clock around each all-reduce and all-gather: a
+    collective staged through host memory first waits for the card to
     finish the work queued before it, so this bounds the transport from
     above); the peak device memory."""
     import numpy as np
@@ -4110,7 +4142,6 @@ def dp_steps(trainer, batches) -> dict:
     from pldepth_torch.ops import listmle_kernel as k1
 
     state = trainer.init_state()
-    mesh = trainer.mesh
     grads, coll = [], [0.0]
     step_fn = trainer.optimizer.step
     keep = torch.cat([torch.full((p.numel(),), not re.fullmatch(r"decoder\.conv\d\.bias", n))
@@ -4121,16 +4152,20 @@ def dp_steps(trainer, batches) -> dict:
         return step_fn(params, opt, finite, grad=grad)
 
     real_all_reduce = mesh_lib.Mesh._all_reduce
+    real_gather = mesh_lib.Mesh.model_gather
 
-    def timed_all_reduce(self, t, op):
-        t0 = time.perf_counter()
-        try:
-            return real_all_reduce(self, t, op)
-        finally:
-            coll[0] += time.perf_counter() - t0
+    def timed(real):
+        def call(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(self, *a, **kw)
+            finally:
+                coll[0] += time.perf_counter() - t0
+        return call
 
     trainer.optimizer.step = spy
-    mesh_lib.Mesh._all_reduce = timed_all_reduce
+    mesh_lib.Mesh._all_reduce = timed(real_all_reduce)
+    mesh_lib.Mesh.model_gather = timed(real_gather)
     bns = [m for m in state.model.modules() if isinstance(m, BatchNorm)]
     losses, bn_stats = [], None
     torch.cuda.synchronize()
@@ -4140,7 +4175,7 @@ def dp_steps(trainer, batches) -> dict:
     try:
         ev[0].record()
         for i, b in enumerate(batches):
-            state, m = trainer.train_step(state, mesh_lib.shard_batch(mesh, b))
+            state, m = trainer.train_step(state, trainer.shard_batch(b))
             ev[i + 1].record()
             losses.append(m.loss)
             if i == 0:
@@ -4149,12 +4184,14 @@ def dp_steps(trainer, batches) -> dict:
         torch.cuda.synchronize()
     finally:
         mesh_lib.Mesh._all_reduce = real_all_reduce
+        mesh_lib.Mesh.model_gather = real_gather
         trainer.optimizer.step = step_fn
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(batches))]
+    kept = ({"digest": state_digest(state)} if digest else {"state": {
+        **{f"model/{k}": v.detach().cpu() for k, v in state.model.state_dict().items()},
+        **{f"opt/{k}": v.cpu() for k, v in state.opt.state_dict().items()}}})
     return {"losses": [float(v) for v in losses], "grad0": grads[0], "bn_stats1": bn_stats,
-            "state": {**{f"model/{k}": v.detach().cpu() for k, v in
-                         state.model.state_dict().items()},
-                      **{f"opt/{k}": v.cpu() for k, v in state.opt.state_dict().items()}},
+            **kept,
             "k1": {"ranking_loss_fwd": k1.ranking_loss_fwd.launches,
                    "ranking_loss_bwd": k1.ranking_loss_bwd.launches},
             "step_ms": step_ms, "ms_median": float(np.median(step_ms)),
@@ -4167,6 +4204,31 @@ def dp_gaps(got: dict, want: dict) -> dict:
     rel_l2 = float((got["grad0"] - want["grad0"]).norm() / want["grad0"].norm())
     return {"loss": abs(got["losses"][0] - want["losses"][0]) / abs(want["losses"][0]),
             "grad": rel_l2, "bn_stats": max_rel(got["bn_stats1"], want["bn_stats1"])}
+
+
+@contextlib.contextmanager
+def one_rounding_bn():
+    """Single-process BN statistics divided by the count where the card's
+    ``mean`` multiplies by its reciprocal: at most one f32 rounding apart,
+    a step's sensitivity to that."""
+    import torch
+
+    from pldepth_torch.models import layers
+
+    moments = layers.batch_moments
+
+    def divided(x, mesh=None):
+        dims = tuple(range(x.dim() - 1))
+        n = torch.tensor(float(x.numel() // x.shape[-1]), device=x.device)
+        mean = x.sum(dim=dims) / n
+        y = x - mean
+        return mean, y, torch.square(y).sum(dim=dims) / n
+
+    layers.batch_moments = divided
+    try:
+        yield
+    finally:
+        layers.batch_moments = moments
 
 
 def dp_child(case: str, out: str) -> int:
@@ -4194,22 +4256,8 @@ def dp_child(case: str, out: str) -> int:
         rec["none2"] = dp_steps(Trainer(cfg, DP_STEPS, mesh=mesh_lib.Mesh()), batches)
         # the step's sensitivity: no group, the BN statistics divided by the
         # count (at most one f32 rounding from the reciprocal product of mean)
-        from pldepth_torch.models import layers
-
-        moments = layers.batch_moments
-
-        def divided(x, mesh=None):
-            dims = tuple(range(x.dim() - 1))
-            n = torch.tensor(float(x.numel() // x.shape[-1]), device=x.device)
-            mean = x.sum(dim=dims) / n
-            y = x - mean
-            return mean, y, torch.square(y).sum(dim=dims) / n
-
-        layers.batch_moments = divided
-        try:
+        with one_rounding_bn():
             rec["ulp"] = dp_steps(Trainer(cfg, DP_STEPS, mesh=mesh_lib.Mesh()), batches)
-        finally:
-            layers.batch_moments = moments
     elif case == "18b":  # config #1, DP_BATCH global over the ranks
         batches = dp_batches(DP_BATCH, SIZE, DP_STEPS)
         for dtype in DP_DTYPES:
@@ -4415,10 +4463,213 @@ def phase18(smi: str) -> dict:
     return rec
 
 
+# phase 19: spatial sharding, the mesh's model axis. Config #1 (ff_effnet
+# 448^2, batch 32) and config #5's model (ff_effnet_b4 640^2 unfrozen, 8
+# rows) at data 1 x model 2 and x model 4 against the single-process step on
+# the same global batch; cli train --mesh_model 2 --spatial_sharding true on
+# SP_SCENES resident scenes. The ranks share the one card over gloo (NCCL
+# refuses two ranks on one GPU): no time here is a scaling figure, and each
+# rank's peak is set beside one process's.
+# two steps a case (the gaps read step 1; "ms a step" is step 2's)
+SP_STEPS, SP_BATCH, SP_B4_ROWS, SP_SCENES, SP_CLI_BATCH = 2, 32, 8, 32, 8
+# (model, dtype) of each model axis: config #1 in f32 at both and in its
+# own bf16 at model 2; config #5's model in f32 at model 2 (gated) and in
+# its own bf16 at both (reported beside its one-rounding sensitivity,
+# SP_ULP). Config #1's bf16 step at model 4 (4.2 s a step a rank) is cut to
+# keep the script inside its time limit.
+SP_CASES = {2: (("b0", "float32"), ("b0", "bfloat16"), ("b4", "float32"), ("b4", "bfloat16")),
+            4: (("b0", "float32"), ("b4", "bfloat16"))}
+SP_ULP = ("b4", "bfloat16")
+SP_SHARED = "ranks share 1 card over gloo, not a scaling figure"
+# step-1 loss rel, the first step's all-reduced flat gradient rel L2 and the
+# new BN running statistics rel, against the single-process step. A sharded
+# conv convolves other row counts (cuDNN may pick another algorithm) and
+# the BN, squeeze-excite and gradient sums run in another order, so f32
+# holds the loss and statistics a decade over phase 18's data-parallel
+# bounds and the gradient at 2e-2 (the card's own spread of the gradient is
+# 6.4e-3, phase 18a). bf16: phase 18a measured one f32 rounding of the BN
+# statistics turning config #1's bf16 step into loss 9e-5, gradient 0.17
+# and statistics 2.7e-4, so config #1's bf16 is held only to what such
+# roundings give. Config #5's unfrozen B4 in bf16 is more sensitive still
+# (its first run here: loss 8.0e-4-9.9e-4, gradient 0.64, statistics
+# 2.5e-3 at both model axes, the ranks bit-equal); it is reported beside the
+# gaps one such rounding makes in its own single-process step (SP_ULP) and
+# gated in f32.
+SP_TOL = {"float32": {"loss": 1e-5, "grad": 2e-2, "bn_stats": 1e-4},
+          "bfloat16": {"loss": 1e-3, "grad": 0.5, "bn_stats": 1e-2}}
+
+
+def sp_config(model: str, dtype: str, m: int):
+    """Config #1 (``b0``) or config #5's model (``b4``) at data 1 x model
+    ``m``, spatially sharded when ``m`` > 1."""
+    from pldepth_torch.core.config import MeshConfig
+
+    if model == "b0":
+        cfg = load_config(EFFNET_CONFIG).replace(input_size=SIZE, batch_size=SP_BATCH)
+    else:
+        cfg = load_config(DP_B4_CONFIG).replace(batch_size=SP_B4_ROWS)
+    return cfg.replace(compute_dtype=dtype, mesh=MeshConfig(data=1, model=m),
+                       spatial_sharding=m > 1)
+
+
+def sp_batches(model: str):
+    cfg = sp_config(model, "float32", 1)
+    return dp_batches(cfg.batch_size, cfg.input_size, SP_STEPS, seed=19)
+
+
+def sp_child(m: int, out: str) -> int:
+    """One rank of phase 19 at model ``m``: every case of SP_CASES through
+    ``dp_steps``; writes ``19-m<m>_r<rank>.pt`` to ``out``."""
+    import torch
+
+    from pldepth_torch.core import mesh as mesh_lib
+    from pldepth_torch.train import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_lib.init_distributed()
+    if mesh_lib.warmup_collectives(mesh) != mesh.world:
+        fail("warmup_collectives does not count every rank")
+    rec = {"backend": mesh.backend}
+    for model, dtype in SP_CASES[m]:
+        trainer = Trainer(sp_config(model, dtype, m), SP_STEPS)
+        rec[f"{model}-{dtype}"] = {**dp_steps(trainer, sp_batches(model), digest=True),
+                                   "rows": trainer.input_rows()}
+        del trainer
+        torch.cuda.empty_cache()
+    torch.save(rec, os.path.join(out, f"19-m{m}_r{mesh.rank}.pt"))
+    mesh_lib.shutdown()
+    return 0
+
+
+def phase19(smi: str) -> dict:
+    """Phase 19: spatial sharding (ops/halo.py, core/mesh.py's model axis)
+    in child processes with torchrun's variables: (a) config #1 at model 2,
+    (b) at model 4 (a deepest level of 14 rows: 4/4/4/2), (c) config #5's
+    model at model 2 and 4 with each rank's peak beside one process's, each
+    against the single-process step (SP_CASES; gated but config #5's bf16,
+    reported beside its one-rounding sensitivity); (d) cli train at model 2
+    with a resident store of each rank's rows."""
+    import torch
+
+    from pldepth_torch.train import Trainer
+    from pldepth_torch.train.checkpoint import load_weights_npz
+
+    here = os.path.abspath(__file__)
+    t_phase = time.perf_counter()
+    rec = {"label": SP_SHARED, "bounds": SP_TOL}
+    torch.cuda.empty_cache()
+    want_k1 = {"ranking_loss_fwd": SP_STEPS, "ranking_loss_bwd": SP_STEPS}
+    k1_total = {k: 0 for k in want_k1}
+    with tempfile.TemporaryDirectory() as out:
+        # the single-process references, alone on the card
+        t0 = time.perf_counter()
+        refs = {}
+        for model, dtype in sorted({c for cases in SP_CASES.values() for c in cases}):
+            refs[f"{model}-{dtype}"] = dp_steps(Trainer(sp_config(model, dtype, 1), SP_STEPS),
+                                                sp_batches(model), digest=True)
+            torch.cuda.empty_cache()
+        ulp_key = "-".join(SP_ULP)
+        with one_rounding_bn():
+            ulp = dp_steps(Trainer(sp_config(*SP_ULP, 1), SP_STEPS), sp_batches(SP_ULP[0]),
+                           digest=True)
+        rec["ulp"] = {ulp_key: dp_gaps(ulp, refs[ulp_key])}
+        log(f"19 {' '.join(SP_ULP)}: one f32 rounding in the single-process step's BN "
+            f"statistics (divided by the count) moves " + ", ".join(
+                f"{k} {v:.3e}" for k, v in rec["ulp"][ulp_key].items()) + f" [{smi}]")
+        del ulp
+        torch.cuda.empty_cache()
+        rec["refs_s"] = time.perf_counter() - t0
+        bad = []
+        for m in SP_CASES:
+            t0 = time.perf_counter()
+            spawn_ranks([sys.executable, here, "--dp_child", f"19-m{m}", "--dp_out", out], m, m,
+                        f"19 model {m}")
+            ranks = [torch.load(os.path.join(out, f"19-m{m}_r{r}.pt"), weights_only=False)
+                     for r in range(m)]
+            rec[f"model{m}"] = cell = {"backend": ranks[0]["backend"],
+                                       "s": time.perf_counter() - t0}
+            for model, dtype in SP_CASES[m]:
+                key, gated = f"{model}-{dtype}", (model, dtype) != SP_ULP
+                tol = SP_TOL[dtype]
+                ref, runs = refs[key], [r[key] for r in ranks]
+                gaps = [dp_gaps(r, ref) for r in runs]
+                equal = len({r["digest"] for r in runs}) == 1
+                cell[key] = {
+                    "gaps": gaps, "ranks_equal": equal, "k1": [r["k1"] for r in runs],
+                    "rows": [r["rows"] for r in runs], "losses": runs[0]["losses"],
+                    "gated": gated, "ms": [r["step_ms"][-1] for r in runs],
+                    "ms_single": ref["step_ms"][-1],
+                    "collective_ms": [r["collective_ms_per_step"] for r in runs],
+                    "peak_gb": [r["peak_gb"] for r in runs], "peak_gb_single": ref["peak_gb"]}
+                for r, (rk, g) in enumerate(zip(runs, gaps)):
+                    log(f"19 {model} {dtype} data 1 x model {m}, rank {r} (rows {rk['rows']}) vs "
+                        f"the single-process step: " + ", ".join(
+                            f"{k} {v:.3e}" + (f" (bound {tol[k]:g})" if gated else "")
+                            for k, v in g.items())
+                        + ("" if gated else " (reported: its one-rounding sensitivity above)")
+                        + f"; K1 {rk['k1']}; {rk['step_ms'][-1]:.1f} ms a step (step "
+                        f"{SP_STEPS}), {rk['collective_ms_per_step']:.1f} ms a step in "
+                        f"collectives (mean of {SP_STEPS}), peak {rk['peak_gb']:.2f} GB "
+                        f"({SP_SHARED}; one process alone: {ref['step_ms'][-1]:.1f} ms, "
+                        f"{ref['peak_gb']:.2f} GB) [{smi}]")
+                log(f"19 {model} {dtype} model {m}: the ranks' weights, statistics and optimizer "
+                    f"state bit-equal after {SP_STEPS} steps: {equal}")
+                for r in runs:
+                    for k in want_k1:
+                        k1_total[k] += r["k1"][k]
+                if not equal or any(r["k1"] != want_k1 for r in runs) or (gated and any(
+                        g[k] > tol[k] for g in gaps for k in tol)):
+                    bad.append(f"{key} model {m}: ranks equal {equal}, gaps {gaps}, K1 "
+                               f"{[r['k1'] for r in runs]} (want {want_k1} a rank)")
+            if cell["backend"] != "gloo":
+                bad.append(f"model {m}: backend {cell['backend']}")
+            del ranks
+            torch.cuda.empty_cache()
+        del refs
+        if bad:
+            fail(f"19: {bad} (bounds {SP_TOL})")
+        rec["k1_launches"] = k1_total
+
+        # 19d ------------------------------------------------------------------
+        t0 = time.perf_counter()
+        runs_dir = os.path.join(out, "runs")
+        outs = spawn_ranks([sys.executable, "-m", "pldepth_torch.cli", "train", "--config_json",
+                            os.path.join(os.path.dirname(here), "configs", EFFNET_CONFIG),
+                            "--dataset", "scenes", "--ds_size", str(SP_SCENES), "--input_size",
+                            str(SIZE), "--batch_size", str(SP_CLI_BATCH), "--epochs", "1",
+                            "--data_resident", "true", "--mesh_model", "2",
+                            "--spatial_sharding", "true", "--output_dir", runs_dir,
+                            "--run_name", "sp19d"], 2, 2, "19d")
+        stores = [re.search(r"resident store \(rank (\d) of 2\): (\d+) samples, ([0-9.]+) GB "
+                            r"in HBM, gt_scale (\S+)", o) for o in outs]
+        if not all(stores):
+            fail("19d: a rank printed no resident store line")
+        scales = {m.group(4) for m in stores}
+        written = sorted(os.listdir(os.path.join(runs_dir, "sp19d")))
+        tr = Trainer(load_config(EFFNET_CONFIG).replace(input_size=SIZE), 1)
+        state = load_weights_npz(os.path.join(runs_dir, "sp19d", "weights.npz"), tr.init_state())
+        pred = tr.predict(state, dp_batches(2, SIZE, 1)[0]["image"])
+        rec["19d"] = {"store_gb": [float(m.group(3)) for m in stores],
+                      "store_n": [int(m.group(2)) for m in stores], "gt_scale": sorted(scales),
+                      "written": written, "s": time.perf_counter() - t0}
+        log(f"19d cli train --mesh_model 2 --spatial_sharding true, {SP_SCENES} scenes, "
+            f"resident: stores {rec['19d']['store_gb']} GB a rank (each its image rows) of "
+            f"{rec['19d']['store_n']} samples, gt_scale {sorted(scales)}; run files {written}; "
+            f"weights.npz from rank 0 loaded back and served: finite "
+            f"{bool(torch.isfinite(pred).all())}; {rec['19d']['s']:.1f} s of command "
+            f"({SP_SHARED})")
+        if len(scales) != 1 or not torch.isfinite(pred).all() or "weights.npz" not in written:
+            fail(f"19d: gt_scale {scales}, run files {written} or a non-finite prediction")
+    rec["s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {rec['s']:.1f} s [{smi}]")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write every number here as JSON")
-    ap.add_argument("--dp_child", default="", help=argparse.SUPPRESS)  # a phase-18 rank
+    ap.add_argument("--dp_child", default="", help=argparse.SUPPRESS)  # a phase-18/19 rank
     ap.add_argument("--dp_out", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -4431,6 +4682,8 @@ def main() -> int:
         import pldepth_torch  # noqa: F401
     except ImportError as e:
         fail(f"pldepth_torch is not importable next to this script: {e}")
+    if args.dp_child.startswith("19-m"):
+        return sp_child(int(args.dp_child[len("19-m"):]), args.dp_out)
     if args.dp_child:
         return dp_child(args.dp_child, args.dp_out)
     import numpy as np
@@ -4680,6 +4933,11 @@ def main() -> int:
 
     mark("18")
 
+    # 19. spatial sharding: model 2 and 4 on the card, config #1 and #5's model, cli train ---
+    record["phase19"] = rec19 = phase19(smi)
+
+    mark("19")
+
     kernels = [{
         "name": "fused_mbconv", "route": "cuda",
         "source": "pldepth_torch/csrc/fused_mbconv.cu",
@@ -4700,7 +4958,7 @@ def main() -> int:
         "launches": (rec_t["launches"][name] + rec_rt["launches"][name]
                      + rec_d["k1_launches"][name] + rec16["gate"]["k1_launches"][name]
                      + rec16["active"]["k1_launches"][name] + rec17["k1_launches"][name]
-                     + rec18["k1_launches"][name]),
+                     + rec18["k1_launches"][name] + rec19["k1_launches"][name]),
         "max_abs_err": err,
         **{key: k1t["fused"][K1_MAIN][name][key] for key in ("ms", "plain_ms", "bound_ms",
                                                               "bound_by")},

@@ -512,11 +512,16 @@ def train(args: argparse.Namespace) -> dict:
     )
     from pldepth_torch.train.trainer import Trainer
 
+    from pldepth_torch.core.mesh import make_mesh
+
     cfg = _make_config(vars(args))
     if args.resume and not args.run_name:
         raise SystemExit("--resume needs a fixed --run_name")
     mesh = _join_group(args)
     world, rank = mesh.world, mesh.rank
+    # the (data, model) layout: feeds and stores are sharded by data index
+    # (the model ranks of one index take the same samples)
+    layout = make_mesh(cfg.mesh, mesh)
     if world > 1 and args.pack_cache and not cfg.data_resident:
         raise NotImplementedError(
             "--pack_cache has no shard contract across processes yet: "
@@ -525,11 +530,11 @@ def train(args: argparse.Namespace) -> dict:
     run_name = mesh.broadcast_object(
         args.run_name or time.strftime("%d%m%y-%H%M%S") + f"_s{cfg.sampling_type}")
     train_ds, val_ds = _load_data(cfg)
-    # a streaming rank steps through its stride of the set; the resident
-    # batch_size is the global batch
-    per_rank = len(train_ds) if cfg.data_resident else len(train_ds) // world
+    # a streaming data index steps through its stride of the set; the
+    # resident batch_size is the global batch
+    per_rank = len(train_ds) if cfg.data_resident else len(train_ds) // layout.data
     # the Trainer checks the training options before any file is written
-    trainer = Trainer(cfg, max(1, per_rank // cfg.batch_size), device=args.device)
+    trainer = Trainer(cfg, max(1, per_rank // cfg.batch_size), device=args.device, mesh=layout)
     logger = MetricLogger(cfg.output_dir, run_name, cfg.to_dict(), cfg.use_wandb,
                           use_tensorboard=cfg.use_tensorboard, use_mlflow=cfg.use_mlflow,
                           mlflow_tracking_uri=cfg.mlflow_tracking_uri)
@@ -547,8 +552,10 @@ def train(args: argparse.Namespace) -> dict:
     if cfg.data_resident:
         from pldepth_torch.data.resident import build_resident_store
 
-        resident_store = build_resident_store(train_ds, trainer.device, shard_index=rank,
-                                              num_shards=world)
+        # under spatial sharding each rank holds its image rows of the samples
+        resident_store = build_resident_store(train_ds, trainer.device,
+                                              shard_index=layout.data_index,
+                                              num_shards=layout.data, rows=trainer.input_rows())
         shard = f" (rank {rank} of {world})" if world > 1 else ""
         print(f"resident store{shard}: {resident_store.n} samples, "
               f"{resident_store.nbytes / 1e9:.2f} GB in HBM, gt_scale "
@@ -562,21 +569,22 @@ def train(args: argparse.Namespace) -> dict:
         train_iter = NativePackedIterator(args.pack_cache, cfg.batch_size, seed=cfg.seed,
                                           start_step=state.step, ring=cfg.prefetch_depth)
     else:
-        # each rank its stride of one permutation (the JAX command does not
-        # shard this feed: ROADMAP.md, noted, not faults)
+        # each data index its stride of one permutation (the JAX command does
+        # not shard this feed: ROADMAP.md, noted, not faults); under spatial
+        # sharding the step cuts each batch to the rank's rows on the host
         train_iter = BatchIterator(train_ds, cfg.batch_size, seed=cfg.seed,
                                    start_step=state.step, prefetch=cfg.prefetch_depth,
-                                   uint8_wire=cfg.uint8_wire, shard_index=rank,
-                                   num_shards=world)
+                                   uint8_wire=cfg.uint8_wire, shard_index=layout.data_index,
+                                   num_shards=layout.data)
     vfac = None
-    if len(val_ds) // world >= cfg.batch_size:
+    if len(val_ds) // layout.data >= cfg.batch_size:
         # fixed val rankings from the thresholded sampler (hourglass_provider.py:22)
         val_rankings = pregenerate_val_rankings(
             val_ds, sampler_name="thresholded", rankings_per_image=cfg.val_rpi,
             ranking_size=cfg.ranking_size, threshold=cfg.equality_threshold, seed=cfg.seed,
             device=trainer.device)
         vfac = lambda: val_batches(val_ds, val_rankings, cfg.batch_size,  # noqa: E731
-                                   shard_index=rank, num_shards=world)
+                                   shard_index=layout.data_index, num_shards=layout.data)
     ckpt = (CheckpointManager(os.path.join(logger.dir, "ckpt"), keep=cfg.keep_checkpoints)
             if cfg.model_checkpoints else None)
 

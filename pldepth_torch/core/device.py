@@ -26,6 +26,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as float32, or as it is when it is float64. The port's float32
+    sites (batch-norm statistics, the squeeze-excite mean, the depth map,
+    the loss, the optimizer's flat state) keep a float64 network in
+    float64, so two ways of computing one step can be held to each other
+    far below float32's rounding."""
+    return x if x.dtype == torch.float64 else x.to(torch.float32)
+
+
 def local_cuda_index() -> int:
     """The card of this process under a launcher: ``LOCAL_RANK`` modulo
     the cards the host has (0 without a launcher). Ranks beyond the card

@@ -1,19 +1,28 @@
-"""Process groups and the batch-axis collectives of data parallelism
+"""Process groups and the collectives of the data and model axes
 (``pldepth_tpu/core/mesh.py``).
 
-The JAX package shards the batch over a device mesh and lets XLA insert
-every cross-device reduction. Here one process drives one card and the
-reductions are explicit: :class:`Mesh` holds the process group, and every
-reduction over the batch that the train step makes goes through its
+The JAX package lays its devices out as a (data, model) mesh and lets XLA
+insert every cross-device reduction. Here one process drives one card and
+the reductions are explicit. :class:`Mesh` holds the process group and this
+rank's place in the layout: rank ``r`` sits at data index ``r // model`` and
+model index ``r % model``, the order of ``np.asarray(devices).reshape(data,
+model)``. Every reduction that the train step makes goes through its
 helpers, so at world size W the step computes what the single-process step
 computes on the global batch:
 
-* :meth:`Mesh.sum` is a differentiable all-reduce sum whose backward
-  all-reduces the cotangent (batch-norm statistics over the global batch:
-  SyncBN's forward and backward);
+* :meth:`Mesh.sum` is a differentiable all-reduce sum over the world whose
+  backward all-reduces the cotangent (batch-norm statistics over the global
+  batch: SyncBN's forward and backward);
 * :meth:`Mesh.reduce_` all-reduces in place without gradient (the flat
   gradient, a loss), :meth:`Mesh.max` the maxima (calibration ``amax``,
   ``gt_max``), :meth:`Mesh.broadcast_` copies rank 0's tensors;
+* the model axis (spatial sharding: image rows over the ``model`` ranks of
+  one data index; ops/halo.py): :meth:`Mesh.model_sum` (differentiable,
+  the squeeze-excite means), :meth:`Mesh.model_gather` (the halo edges)
+  and :meth:`Mesh.gather_rows` (a differentiable row all-gather: the
+  prediction map the loss reads, the gt and mask the sampler reads). Each
+  data index has its own model subgroup; every rank creates every
+  subgroup, in the same order (:func:`make_mesh`);
 * :meth:`Mesh.any` and :meth:`Mesh.barrier` are the control plane (the
   stop flag, checkpoint writes). They run on host tensors over a gloo group,
   so they never wait for the card's stream.
@@ -27,9 +36,10 @@ tensors here: a collective on a CUDA tensor is staged through host memory
 mode, chosen at start-up and printed on rank 0, not a fallback.
 
 The step's random draws (flip, ranking sampling, drop-path) are made at the
-global batch's shape and each rank keeps its own rows
-(:class:`RowsGenerator`), so global row i gets the same draws at world W as
-at world 1. Every draw's shape depends on the batch size only.
+global batch's shape and each rank keeps the rows of its data index
+(:class:`RowsGenerator`), so global row i gets the same draws at every
+layout as at world 1, and the model ranks of one data index draw alike.
+Every draw's shape depends on the batch size only.
 """
 
 from __future__ import annotations
@@ -37,11 +47,12 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from pldepth_torch.core.config import MeshConfig
 from pldepth_torch.core.device import local_cuda_index
@@ -49,11 +60,11 @@ from pldepth_torch.core.device import local_cuda_index
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One process's place in the data-parallel job. ``group`` is None
-    without a process group (world 1, every helper the identity);
-    ``host_group`` is the gloo group of the control plane (``group`` itself
-    under gloo). ``data`` x ``model`` = ``world``; ``model`` is 1 (spatial
-    sharding is not ported)."""
+    """One process's place in the job. ``group`` is None without a process
+    group (world 1, every helper the identity); ``host_group`` is the gloo
+    group of the control plane (``group`` itself under gloo). ``data`` x
+    ``model`` = ``world``; ``model_group`` is the subgroup of the ``model``
+    ranks that share this rank's data index (None when ``model`` is 1)."""
 
     world: int = 1
     rank: int = 0
@@ -63,6 +74,7 @@ class Mesh:
     host_group: Optional[object] = None
     data: int = 1
     model: int = 1
+    model_group: Optional[object] = None
 
     @property
     def active(self) -> bool:
@@ -73,15 +85,29 @@ class Mesh:
         """gloo carries host tensors: CUDA tensors go through host memory."""
         return self.backend == "gloo"
 
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def model_active(self) -> bool:
+        return self.model_group is not None
+
     # -- data plane -------------------------------------------------------
-    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        """All-reduce ``t`` in place (staged through the host under gloo)."""
+    def _all_reduce(self, t: torch.Tensor, op, group=None) -> torch.Tensor:
+        """All-reduce ``t`` in place over ``group`` (default: the world),
+        staged through the host under gloo."""
+        group = self.group if group is None else group
         if self.staged and t.device.type != "cpu":
             host = t.cpu()
-            dist.all_reduce(host, op=op, group=self.group)
+            dist.all_reduce(host, op=op, group=group)
             t.copy_(host)
         else:
-            dist.all_reduce(t, op=op, group=self.group)
+            dist.all_reduce(t, op=op, group=group)
         return t
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -89,7 +115,7 @@ class Mesh:
         all-reduces the cotangent. The identity with no group."""
         if not self.active:
             return x
-        return _AllReduceSum.apply(x, self)
+        return _AllReduceSum.apply(x, self, self.group)
 
     @torch.no_grad()
     def reduce_(self, t: torch.Tensor) -> torch.Tensor:
@@ -119,6 +145,38 @@ class Mesh:
                 dist.broadcast(flat, src=0, group=self.group)
             for t, v in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(v.view_as(t))
+
+    # -- model axis ---------------------------------------------------------
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`sum` over the model ranks of this data index."""
+        if not self.model_active:
+            return x
+        return _AllReduceSum.apply(x, self, self.model_group)
+
+    @torch.no_grad()
+    def model_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(model, *t.shape): every model rank's ``t`` (equal shapes) in
+        model-index order. Two-byte floats travel as their bytes (the
+        gather adds nothing, and gloo's all-gather takes no 16-bit type)."""
+        if not self.model_active:
+            return t.unsqueeze(0)
+        t = t.contiguous()
+        wire = t.view(torch.uint8) if t.dtype in (torch.bfloat16, torch.float16) else t
+        if self.staged and wire.device.type != "cpu":
+            wire = wire.cpu()
+        parts = [torch.empty_like(wire) for _ in range(self.model)]
+        dist.all_gather(parts, wire, group=self.model_group)
+        out = torch.stack(parts).to(t.device)
+        return out.view(t.dtype) if out.dtype != t.dtype else out
+
+    def gather_rows(self, x: torch.Tensor, counts: Sequence[int], dim: int = 1) -> torch.Tensor:
+        """The model ranks' pieces of ``x`` along ``dim`` (rank q holds
+        ``counts[q]`` of them), concatenated in model-index order. The
+        backward sums the cotangent over the model ranks and keeps this
+        rank's slice. ``requires_grad`` decides whether it is recorded."""
+        if not self.model_active:
+            return x
+        return _GatherRows.apply(x, self, tuple(counts), dim)
 
     # -- control plane (host tensors, gloo) --------------------------------
     def any(self, flag: bool) -> bool:
@@ -152,16 +210,36 @@ class Mesh:
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x: torch.Tensor, mesh: Mesh):
-        ctx.mesh = mesh
-        return mesh._all_reduce(x.clone(), dist.ReduceOp.SUM)
+    def forward(ctx, x: torch.Tensor, mesh: Mesh, group):
+        ctx.mesh, ctx.group = mesh, group
+        return mesh._all_reduce(x.clone(), dist.ReduceOp.SUM, group)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        return ctx.mesh._all_reduce(g.contiguous().clone(), dist.ReduceOp.SUM), None
+        g = ctx.mesh._all_reduce(g.contiguous().clone(), dist.ReduceOp.SUM, ctx.group)
+        return g, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: Mesh, counts: Tuple[int, ...], dim: int):
+        ctx.mesh, ctx.counts, ctx.dim = mesh, counts, dim
+        most = max(counts)
+        pad = [0, 0] * (x.dim() - 1 - dim) + [0, most - x.shape[dim]]
+        parts = mesh.model_gather(F.pad(x, pad) if most > x.shape[dim] else x)
+        return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, counts)], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        mesh, counts = ctx.mesh, ctx.counts
+        g = mesh._all_reduce(g.contiguous().clone(), dist.ReduceOp.SUM, mesh.model_group)
+        start = sum(counts[:mesh.model_index])
+        return g.narrow(ctx.dim, start, counts[mesh.model_index]), None, None, None
 
 
 _PROCESS_MESH: Optional[Mesh] = None
+# (data, model) -> this rank's model subgroup, made once per process group
+_MODEL_GROUPS: dict = {}
 
 
 def current() -> Mesh:
@@ -218,17 +296,31 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _PROCESS_MESH = None
+    _MODEL_GROUPS.clear()
 
 
 def make_mesh(cfg: Optional[MeshConfig] = None, mesh: Optional[Mesh] = None) -> Mesh:
     """``mesh`` (default: the process's) laid out as ``cfg``; raises as the
-    JAX package does when data x model is not the world size."""
+    JAX package does when data x model is not the world size. With a
+    process group and ``model`` > 1 every rank joins the creation of every
+    data index's model subgroup (the same calls in the same order on every
+    rank: ``new_group`` is collective over the world), once per layout."""
     cfg = cfg or MeshConfig()
     base = mesh if mesh is not None else current()
     data = cfg.resolved_data(base.world)
     if data * cfg.model != base.world:
         raise ValueError(f"mesh {data}x{cfg.model} does not match {base.world} devices")
-    return dataclasses.replace(base, data=data, model=cfg.model)
+    group = None
+    if base.active and cfg.model > 1:
+        key = (data, cfg.model)
+        if key not in _MODEL_GROUPS:
+            for d in range(data):
+                ranks = list(range(d * cfg.model, (d + 1) * cfg.model))
+                g = dist.new_group(ranks, backend=base.backend)
+                if base.rank in ranks:
+                    _MODEL_GROUPS[key] = g
+        group = _MODEL_GROUPS[key]
+    return dataclasses.replace(base, data=data, model=cfg.model, model_group=group)
 
 
 def warmup_collectives(mesh: Mesh) -> float:
@@ -254,27 +346,34 @@ def pad_to_batch(a: np.ndarray, batch_size: int, fill: float = 0.0) -> np.ndarra
     return np.concatenate([a, np.full((pad, *a.shape[1:]), fill, a.dtype)])
 
 
-def shard_batch(mesh: Mesh, batch):
-    """This rank's rows of a global host batch: the contiguous block
-    ``rank`` of ``data`` equal blocks of the leading axis (the rows a
-    batch-sharded array places on data-axis index ``rank``)."""
-    def rows(x):
+def shard_batch(mesh: Mesh, batch, rows: Optional[Tuple[int, int]] = None):
+    """This rank's part of a global host batch: the contiguous block
+    ``data_index`` of ``data`` equal blocks of the leading axis (the rows a
+    batch-sharded array places on that data-axis index) and, with ``rows``
+    (spatial sharding: this rank's image rows ``[start, end)``), those rows
+    of "image", "gt" and "mask"."""
+    def block(k, x):
         n = x.shape[0]
         if n % mesh.data:
             raise ValueError(f"batch of {n} rows does not split over {mesh.data} ranks")
         b = n // mesh.data
-        return x[mesh.rank * b:(mesh.rank + 1) * b]
+        x = x[mesh.data_index * b:(mesh.data_index + 1) * b]
+        if rows is not None and k in ("image", "gt", "mask"):
+            x = x[:, rows[0]:rows[1]]
+        return x
 
-    return {k: rows(v) for k, v in batch.items()}
+    return {k: block(k, v) for k, v in batch.items()}
 
 
 class RowsGenerator:
     """A ``torch.Generator`` whose batch draws (:func:`batch_rand`,
-    :func:`batch_randint`) are made at the global batch's shape, ``world``
-    times the local rows, of which this rank keeps block ``rank``."""
+    :func:`batch_randint`) are made at the global batch's shape, ``count``
+    times the local rows, of which this rank keeps block ``index`` (the
+    data index and the data-axis size: every model rank of a data index
+    draws alike)."""
 
-    def __init__(self, gen: torch.Generator, rank: int = 0, world: int = 1):
-        self.gen, self.rank, self.world = gen, rank, world
+    def __init__(self, gen: torch.Generator, index: int = 0, count: int = 1):
+        self.gen, self.index, self.count = gen, index, count
 
     @property
     def device(self) -> torch.device:
@@ -287,20 +386,20 @@ class RowsGenerator:
         """A new generator of the same kind set to ``state``."""
         g = torch.Generator(device=self.gen.device)
         g.set_state(state)
-        return RowsGenerator(g, self.rank, self.world)
+        return RowsGenerator(g, self.index, self.count)
 
     def set_state(self, state: torch.Tensor) -> None:
         self.gen.set_state(state)
 
     def rows(self, full: torch.Tensor, b: int) -> torch.Tensor:
-        return full if self.world == 1 else full.narrow(0, self.rank * b, b)
+        return full if self.count == 1 else full.narrow(0, self.index * b, b)
 
 
 def _global(gen, shape: Sequence[int]):
     """(the torch generator, the shape to draw, the local row count)."""
     shape = tuple(shape)
     if isinstance(gen, RowsGenerator):
-        return gen.gen, (shape[0] * gen.world, *shape[1:]), shape[0]
+        return gen.gen, (shape[0] * gen.count, *shape[1:]), shape[0]
     return gen, shape, shape[0]
 
 

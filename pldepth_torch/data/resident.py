@@ -30,15 +30,18 @@ to a multiple of the shard count, each rank holds the stride
 ``shard_index::num_shards`` of it on its card, and ``gt_max`` is the
 ranks' largest (an all-reduce max over the process group) so every shard
 quantizes with one ``gt_scale``; ``Trainer.resident_batch`` draws each
-rank's rows from its own shard. Sharding over a spatial axis is ROADMAP.md
-queue 1 item 11.
+rank's rows from its own shard. Under a mesh model axis the shards are the
+data indices (``num_shards`` = data), so the model ranks of one data index
+hold the same samples; under spatial sharding (``rows``) each of them holds
+only its image rows of those samples, and ``gt_max`` is the largest over
+every rank's rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,15 +81,19 @@ def decode_gt(q: torch.Tensor, gt_scale: torch.Tensor) -> torch.Tensor:
 
 def build_resident_store(ds: DepthDataset, device: DeviceLike = None, *,
                          max_bytes: Optional[int] = None, shard_index: int = 0,
-                         num_shards: int = 1) -> ResidentStore:
+                         num_shards: int = 1,
+                         rows: Optional[Tuple[int, int]] = None) -> ResidentStore:
     """Load ``ds`` on the host, quantize it, and upload it to ``device``
     (default ``cuda``). ``max_bytes`` bounds the store; a larger set
     raises, and the streaming feeds are the way to train on it.
 
-    ``num_shards`` > 1: this process holds rows ``shard_index::num_shards``
-    of the first ``len(ds) // num_shards * num_shards`` samples, and
-    ``gt_max`` is all-reduced over the process group (core/mesh.py), which
-    must span the shards (``pldepth_tpu/data/resident.py``)."""
+    ``num_shards`` > 1: this process holds samples
+    ``shard_index::num_shards`` of the first ``len(ds) // num_shards *
+    num_shards``, and ``gt_max`` is all-reduced over the process group
+    (core/mesh.py), whose world is a multiple of the shards
+    (``pldepth_tpu/data/resident.py``). ``rows`` (spatial sharding): only
+    image rows ``[start, end)`` of each sample, ``gt_max`` all-reduced over
+    the group too (``spatial_axis`` in the JAX package)."""
     dev = resolve_device(device)
     n = (len(ds) // num_shards) * num_shards
     if n == 0:
@@ -96,9 +103,10 @@ def build_resident_store(ds: DepthDataset, device: DeviceLike = None, *,
     if n != len(ds):
         log.info("resident store: truncating %d -> %d samples for even sharding", len(ds), n)
     mesh = mesh_lib.current()
-    if num_shards > 1 and mesh.world != num_shards:
+    if num_shards > 1 and mesh.world % num_shards:
         raise ValueError(f"a store of {num_shards} shards needs a process group of "
-                         f"{num_shards} ranks, have {mesh.world}")
+                         f"{num_shards} ranks, have {mesh.world} (a multiple of {num_shards} "
+                         "under a model axis)")
     h, w = ds[0]["gt"].shape
     if max_bytes is not None and n * h * w * BYTES_PER_PIXEL > max_bytes:
         raise ValueError(
@@ -106,21 +114,23 @@ def build_resident_store(ds: DepthDataset, device: DeviceLike = None, *,
             f"> max_bytes {max_bytes / 1e9:.1f} GB -- use the streaming pipeline")
 
     local_idx = range(shard_index, n, num_shards)
-    images = np.empty((len(local_idx), h, w, 3), np.uint8)
-    gts = np.empty((len(local_idx), h, w), np.float32)
-    masks = np.empty((len(local_idx), h, w), np.uint8)
+    r0, r1 = (0, h) if rows is None else rows
+    images = np.empty((len(local_idx), r1 - r0, w, 3), np.uint8)
+    gts = np.empty((len(local_idx), r1 - r0, w), np.float32)
+    masks = np.empty((len(local_idx), r1 - r0, w), np.uint8)
     for row, i in enumerate(local_idx):
         s = ds[i]
-        img = s["image"]
+        img = s["image"][r0:r1]
         if img.dtype != np.uint8:  # [0, 1] float -> u8 (round half to even)
             img = np.clip(np.round(img * 255.0), 0, 255).astype(np.uint8)
         images[row] = img
-        gts[row] = s["gt"]
-        masks[row] = (s["mask"] > 0).astype(np.uint8)
+        gts[row] = s["gt"][r0:r1]
+        masks[row] = (s["mask"][r0:r1] > 0).astype(np.uint8)
 
-    # one scale for every shard: the largest gt of all of them
-    gt_max = float(gts.max())
-    if num_shards > 1:
+    # one scale for every shard: the largest gt of all of them (a rank that
+    # holds no rows adds nothing)
+    gt_max = float(gts.max()) if gts.size else 0.0
+    if num_shards > 1 or rows is not None:
         gt_max = mesh.max_float(gt_max)
     gt_max = max(gt_max, 1e-6)
     gt_scale = gt_max / 65535.0
@@ -131,6 +141,7 @@ def build_resident_store(ds: DepthDataset, device: DeviceLike = None, *,
     arrays["gt_scale"] = torch.tensor(gt_scale, dtype=torch.float32, device=dev)
     store = ResidentStore(arrays=arrays, n=n, gt_scale=gt_scale)
     log.info("resident store: %d samples @ %dx%d, %.2f GB on %s (gt_scale %.3e%s)",
-             n, h, w, store.nbytes / 1e9, dev, gt_scale,
-             f", shard {shard_index} of {num_shards}" if num_shards > 1 else "")
+             n, r1 - r0, w, store.nbytes / 1e9, dev, gt_scale,
+             (f", shard {shard_index} of {num_shards}" if num_shards > 1 else "")
+             + (f", rows {r0}:{r1}" if rows is not None else ""))
     return store

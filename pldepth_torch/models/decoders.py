@@ -15,6 +15,10 @@
 both decoders run their last upsample and head only at those pixels
 (ops/sparse_tail.py; skip-concat: window 3, the fused tail off; ReDWeb:
 window 1) and return (B, N) f32 depths; everything before stays dense.
+
+The skip-concat decoder runs spatially sharded when given ``rows`` (the
+top's level, ops/halo.py): every conv, upsample and the fused tail read
+their halos, and it returns this rank's rows of the depth map.
 """
 
 from __future__ import annotations
@@ -24,10 +28,12 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from pldepth_torch.core.device import wide
 from pldepth_torch.models.layers import Conv, TrainPass
 from pldepth_torch.models.quantize import ConvBNScope
 from pldepth_torch.ops.conv import conv2d_same_nhwc
 from pldepth_torch.ops.fused_tail import fused_upsample2x_head
+from pldepth_torch.ops.halo import RowShard
 from pldepth_torch.ops.resize import upsample2x_bilinear
 from pldepth_torch.ops.sparse_tail import sparse_upsample2x_taps
 
@@ -62,26 +68,31 @@ class SkipConcatDecoder(ConvBNScope):
             self.add_conv(f"conv{idx}", ci, co, 3)
         self.head = Conv(head_ch, 1, 3, dtype=dtype)
 
-    def _conv_bn_relu(self, x: torch.Tensor, idx: int,
-                      train: Optional[TrainPass]) -> torch.Tensor:
-        return torch.relu(self.conv_bn(x, f"conv{idx}", train))
+    def _conv_bn_relu(self, x: torch.Tensor, idx: int, train: Optional[TrainPass],
+                      rows: Optional[RowShard] = None) -> torch.Tensor:
+        return torch.relu(self.conv_bn(x, f"conv{idx}", train, rows))
 
     def forward(self, top: torch.Tensor, taps: Dict[str, torch.Tensor],
                 train: Optional[TrainPass] = None,
-                pixels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                pixels: Optional[torch.Tensor] = None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
         if self.fold and train is not None:
             raise ValueError("bn_fold is an inference-only mode (train=False)")
+
+        def at(step):  # the rows ``step`` upsamplings above the top
+            return None if rows is None else rows.at(rows.level - step)
+
         x = top
         for idx, tap in enumerate(("expand_6", "expand_4", "expand_3")):
-            x = upsample2x_bilinear(self._conv_bn_relu(x, idx, train))
+            x = upsample2x_bilinear(self._conv_bn_relu(x, idx, train, at(idx)), at(idx))
             x = torch.cat([x, taps[tap].to(x.dtype)], dim=-1)
-        x = upsample2x_bilinear(self._conv_bn_relu(x, 3, train))  # -> 1/2
-        x = self._conv_bn_relu(x.contiguous(), 4, train)
+        x = upsample2x_bilinear(self._conv_bn_relu(x, 3, train, at(3)), at(3))  # -> 1/2
+        x = self._conv_bn_relu(x.contiguous(), 4, train, at(4))
         if pixels is not None:
             return _head_at(self.head, x, pixels)
         if self.fused_tail:
-            return fused_upsample2x_head(x, self.head.weight, self.head.bias).to(torch.float32)
-        return self.head(upsample2x_bilinear(x).contiguous()).to(torch.float32)
+            return wide(fused_upsample2x_head(x, self.head.weight, self.head.bias, at(4)))
+        return wide(self.head(upsample2x_bilinear(x, at(4)).contiguous(), at(5)))
 
 
 class ResidualBottleneckPair(ConvBNScope):

@@ -13,6 +13,12 @@ with the quantization sites of models/quantize.py, which implies the fold.
 ``qres`` ("int8" or "bf16") trains with every BN(+swish) as one unit whose
 backward reads x̂ compressed (ops/qres.py ``FusedBNAct``, same parameter
 names), and with "int8" the squeeze-excite multiply through ``mul_q8``.
+
+A forward given ``rows`` (ops/halo.py ``RowShard`` at the input's level) is
+spatially sharded: the input holds this rank's image rows, every conv reads
+its halo, the squeeze-excite means sum over the model ranks, and the top
+and the taps are this rank's rows of their levels. :data:`SPATIAL_LEVELS`
+stride-2 steps take the input to the top.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from pldepth_torch.core.device import wide
 from pldepth_torch.core.mesh import batch_rand
 from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass, swish
 from pldepth_torch.models.quantize import make_conv
+from pldepth_torch.ops.halo import RowShard
 from pldepth_torch.ops.qres import FusedBNAct, mul_q8
 
 # (expand_ratio, channels, repeats, stride, kernel) for B0, per stage 1..7.
@@ -54,6 +62,8 @@ VARIANTS: Dict[str, Tuple[float, float]] = {
 
 # stages whose first-block expand activation feeds the decoder
 DECODER_TAP_STAGES = (3, 4, 6)
+# stride-2 steps from the input to the top (the stem's and the stages')
+SPATIAL_LEVELS = 1 + sum(s == 2 for (_, _, _, s, _) in _STAGE_DEFS)
 
 
 def round_filters(filters: int, width: float, divisor: int = 8) -> int:
@@ -91,11 +101,16 @@ class SqueezeExcite(nn.Module):
         self.expand = Conv(reduce_ch, ch, 1, dtype=dtype)
         self.dtype, self.qres = dtype, qres
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
-        se = x.to(torch.float32).mean(dim=(1, 2), keepdim=True)
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
+        if rows is None:
+            se = wide(x).mean(dim=(1, 2), keepdim=True)
+        else:  # the rank's row sums, summed over the model ranks
+            se = rows.mesh.model_sum(wide(x).sum(dim=(1, 2), keepdim=True))
+            se = se / (rows.height * x.shape[2])
         se = swish(self.reduce(se.to(self.dtype)))
         se = self.expand(se)
-        gate = torch.sigmoid(se.to(torch.float32)).to(x.dtype)
+        gate = torch.sigmoid(wide(se)).to(x.dtype)
         if self.qres == "int8":
             return mul_q8(x, gate, train.mesh if train is not None else None)
         return x * gate
@@ -132,7 +147,10 @@ class MBConv(nn.Module):
     def residual(self) -> bool:
         return self.stride == 1 and self.in_ch == self.out_ch
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None):
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                rows: Optional[RowShard] = None):
+        """``rows``: x's level; the depthwise conv reads its halo and the
+        output is at ``rows.level + 1`` when ``stride`` is 2."""
         dt = self.dtype
         inputs = x
         expand_act = None
@@ -140,9 +158,9 @@ class MBConv(nn.Module):
             x = self.expand_conv(x)
             x = swish(x) if self.fold else _bn_act(self.expand_bn, x, train, dt, "swish")
             expand_act = x  # "blockXa_expand_activation" tap point
-        x = self.dw_conv(x)
+        x = self.dw_conv(x) if rows is None else self.dw_conv(x, rows)
         x = swish(x) if self.fold else _bn_act(self.dw_bn, x, train, dt, "swish")
-        x = self.se(x, train)
+        x = self.se(x, train, None if rows is None else rows.at(rows.level + self.stride - 1))
         x = self.project_conv(x)
         if not self.fold:
             x = _bn_act(self.project_bn, x, train, dt, None)
@@ -201,13 +219,24 @@ class EfficientNetEncoder(nn.Module):
             return swish(x)
         return _bn_act(getattr(self, name), x, train, self.dtype, "swish")
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None):
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                rows: Optional[RowShard] = None):
         if self.fold and train is not None:
             raise ValueError("bn_fold is an inference-only mode (train=False)")
-        x = self._bn_swish(self.stem_conv(x.to(self.dtype)), "stem_bn", train)
+        if rows is None:
+            x = self.stem_conv(x.to(self.dtype))
+        else:
+            x = self.stem_conv(x.to(self.dtype), rows.at(0))
+            rows = rows.at(1)
+        x = self._bn_swish(x, "stem_bn", train)
         taps: Dict[str, torch.Tensor] = {}
         for name in self.block_names:
-            x, expand_act = getattr(self, name)(x, train)
+            block = getattr(self, name)
+            if rows is None:
+                x, expand_act = block(x, train)
+            else:
+                x, expand_act = block(x, train, rows)
+                rows = rows.at(rows.level + block.stride - 1)
             stage, i = name[len("stage"):].split("_block")
             if i == "0" and int(stage) in DECODER_TAP_STAGES:
                 taps[f"expand_{stage}"] = expand_act

@@ -14,7 +14,10 @@ statistics into the pass instead of changing its buffers (flax's
 ``mutable=["batch_stats"]``), so the trainer can commit them or keep the
 old ones (the finite guard, train/trainer.py). Under data parallelism
 the pass carries the process's mesh (core/mesh.py) and the statistics are
-those of the global batch (:func:`batch_moments`).
+those of the global batch (:func:`batch_moments`); under spatial sharding
+too, whose ranks each hold some rows of the batch's images (a rank with no
+rows adds zeros and a zero count). A float64 network keeps its statistics
+in float64 (core/device.py ``wide``).
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from pldepth_torch.core.device import wide
 from pldepth_torch.ops.conv import conv2d_same_nhwc
 from pldepth_torch.ops.fused_mbconv import fold_bn
+from pldepth_torch.ops.halo import RowShard
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -57,10 +62,12 @@ class Conv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[RowShard] = None) -> torch.Tensor:
+        """``rows``: x holds this rank's image rows (spatial sharding,
+        ops/halo.py), and so does the result."""
         dt = self.dtype
         y = conv2d_same_nhwc(x.to(dt), self.weight.to(dt), self.stride, self.groups,
-                             self.padding)
+                             self.padding, rows)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
@@ -130,7 +137,7 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
-        x = x.to(torch.float32)
+        x = wide(x)
         if train is None:
             y, var = x - self.running_mean, self.running_var
         else:

@@ -16,7 +16,9 @@ EfficientNet encoder with compressed BN residuals (ops/qres.py). A train
 forward given ``pixels`` returns the depths at those pixels only
 (ops/sparse_tail.py); the ff_effnet forward given ``encoder`` runs that
 serving graph of the encoder without gradient in its place (``qenc``,
-train/trainer.py).
+train/trainer.py). The ff_effnet forward given ``rows`` (an ops/halo.py
+``RowShard``, train and eval forwards alike) is spatially sharded: the
+input and the returned map are this rank's image rows.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from pldepth_torch.models import resnet
 from pldepth_torch.models.decoders import ReDWebDecoder, SkipConcatDecoder
 from pldepth_torch.models.efficientnet import VARIANTS, EfficientNetEncoder
 from pldepth_torch.models.layers import TrainPass, reset_parameters
+from pldepth_torch.ops.halo import RowShard
 
 
 def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass):
@@ -96,7 +99,12 @@ class EffNetFullyFledged(nn.Module):
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
                 pixels: Optional[torch.Tensor] = None,
-                encoder: Optional[nn.Module] = None) -> torch.Tensor:
+                encoder: Optional[nn.Module] = None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
+        if rows is not None:  # spatially sharded (the plain step only)
+            top, taps = self.encoder(x, train, rows.at(0))
+            return self.decoder(top, taps, train, pixels,
+                                rows.at(len(rows.heights) - 1))
         if encoder is not None:  # qenc: a frozen serving graph, no gradient
             with torch.no_grad():
                 top, taps = encoder(x)

@@ -153,8 +153,10 @@ class ConvBNScope(nn.Module):
         if not self.fold:
             self.add_module(conv.replace("conv", "bn"), BatchNorm(out_ch, eps=self.bn_eps))
 
-    def conv_bn(self, x: torch.Tensor, conv: str, train: Optional[TrainPass]) -> torch.Tensor:
-        x = getattr(self, conv)(x)
+    def conv_bn(self, x: torch.Tensor, conv: str, train: Optional[TrainPass],
+                rows=None) -> torch.Tensor:
+        """``rows``: x holds this rank's image rows (spatial sharding)."""
+        x = getattr(self, conv)(x) if rows is None else getattr(self, conv)(x, rows)
         if self.fold:
             return x
         return getattr(self, conv.replace("conv", "bn"))(x, train).to(self.dtype)

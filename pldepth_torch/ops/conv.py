@@ -5,6 +5,11 @@ total with the smaller half before: asymmetric at stride 2 on even sizes,
 so ``padding=k//2`` would be wrong there. A conv built with an explicit
 ``padding`` (the ResNet stem's ``((3, 3), (3, 3))``) pads that much on
 every side instead.
+
+Under spatial sharding (``rows``, an ops/halo.py ``RowShard``) the input
+holds one rank's rows of the image: the pads come from the image's global
+height, a rank's interior sides read its neighbours' rows (the halo), and
+its output rows are its rows of the output level.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from pldepth_torch.ops.halo import HaloPlan, RowShard, extend_rows, halo_plan
 
 
 def same_out_and_pad(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -40,11 +47,55 @@ def conv_pads(h: int, w: int, k: int, stride: int,
 
 
 def conv2d_same_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
-                     groups: int = 1, padding: Optional[int] = None) -> torch.Tensor:
+                     groups: int = 1, padding: Optional[int] = None,
+                     rows: Optional[RowShard] = None) -> torch.Tensor:
     """SAME (or explicitly padded) convolution of NHWC ``x`` with an OIHW
-    ``weight`` of x's dtype."""
+    ``weight`` of x's dtype. With ``rows`` (x's level), ``x`` is this
+    rank's rows and so is the result."""
+    if rows is not None:
+        plan = conv_row_plan(rows, weight.shape[-1], stride, padding)
+        return conv2d_rows_local(extend_rows(x, rows, plan), weight, stride, groups, padding,
+                                 plan, rows.index)
+    if x.shape[1] == 0:  # a sharded rank with no rows: k zero rows in, none out
+        k = weight.shape[-1]
+        pl, pr, _, _ = conv_pads(k, x.shape[2], k, stride, padding)
+        y = F.conv2d(F.pad(x, (0, 0, pl, pr, k, 0)).permute(0, 3, 1, 2), weight, None, stride,
+                     0, 1, groups)
+        return y.permute(0, 2, 3, 1).narrow(1, 0, 0)
     pads = conv_pads(x.shape[1], x.shape[2], weight.shape[-1], stride, padding)
     if any(pads):
         x = F.pad(x, (0, 0, *pads))
     y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, 0, 1, groups)
     return y.permute(0, 2, 3, 1)
+
+
+def conv_row_plan(rows: RowShard, k: int, stride: int,
+                  padding: Optional[int] = None) -> HaloPlan:
+    """The halo plan of a k x k conv at ``rows``' level: output rows
+    ``[so, eo)`` (the ranks' rows of the next level at stride 2) read input
+    rows ``[so * stride - pad_top, (eo - 1) * stride - pad_top + k)``, the
+    top pad that of the global height."""
+    if stride not in (1, 2):
+        raise ValueError(f"a row-sharded conv has stride 1 or 2, not {stride}")
+    h = rows.height
+    pt = same_out_and_pad(h, k, stride)[1] if padding is None else padding
+    return halo_plan(rows.parts[rows.level], rows.parts[rows.level + stride - 1], h,
+                     lambda so, eo: (so * stride - pt, (eo - 1) * stride - pt + k))
+
+
+def conv2d_rows_local(ext: torch.Tensor, weight: torch.Tensor, stride: int, groups: int,
+                      padding: Optional[int], plan: HaloPlan, q: int) -> torch.Tensor:
+    """Rank ``q``'s output rows from ``ext``, the input rows they read
+    (``plan.need[q]``): zero rows where those lie outside the image, the
+    width padded as the whole image's. A rank with no output rows convolves
+    k zero rows and keeps none of the result, so its graph holds the same
+    collectives as every other rank's."""
+    k = weight.shape[-1]
+    pl, pr, _, _ = conv_pads(plan.height, ext.shape[2], k, stride, padding)
+    if plan.need[q] is None:
+        zt, zb = k, 0
+    else:
+        zt, zb = max(0, -plan.lo[q]), max(0, plan.hi[q] - plan.height)
+    x = F.pad(ext, (0, 0, pl, pr, zt, zb))
+    y = F.conv2d(x.permute(0, 3, 1, 2), weight, None, stride, 0, 1, groups).permute(0, 2, 3, 1)
+    return y.narrow(1, 0, 0) if plan.need[q] is None else y

@@ -28,6 +28,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from pldepth_torch.core.device import wide
+
 K_MAX = 2048  # longest list the CUDA kernels take (listmle.cu kMaxK)
 LAYOUTS = {None: 0, "thread": 1, "warp": 2}  # None: listmle.cu picks
 
@@ -88,7 +90,7 @@ def ranking_nll_plain(pred: torch.Tensor, rankings: torch.Tensor) -> torch.Tenso
     """Per-list NLL of (B, ...) f32 maps against (B, RPI, K, 2) rankings,
     plain PyTorch with autograd: (B * RPI,)."""
     k = rankings.shape[-2]
-    scores = gather_ranked_scores(pred.to(torch.float32), ranking_index(rankings[..., 0]))
+    scores = gather_ranked_scores(wide(pred), ranking_index(rankings[..., 0]))
     return listmle_fwd_plain(sort_by_labels_desc(scores, rankings[..., 1].reshape(-1, k)))[0]
 
 

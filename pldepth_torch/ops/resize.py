@@ -9,14 +9,20 @@ edge clamping, the grid of ``tf.image.resize`` and Keras
 ``jax.image.resize(..., "nearest")`` samples source pixel
 ``floor((i + 0.5) * in / out)``: ``F.interpolate``'s ``"nearest-exact"``,
 not its ``"nearest"`` (``floor(i * in / out)``).
+
+:func:`upsample2x_bilinear` runs row-sharded (``rows``, ops/halo.py): a
+rank reads one row of each neighbour and clamps only at the image's own
+top and bottom.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from pldepth_torch.ops.halo import HaloPlan, RowShard, extend_rows, halo_plan
 
 
 def resize_bilinear(img: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
@@ -49,9 +55,41 @@ def resize_nearest(img: torch.Tensor, size: Sequence[int],
     return y.permute(0, 2, 3, 1).reshape(*lead, *out_hw, c)
 
 
-def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
-    """Keras UpSampling2D(interpolation='bilinear') equivalent, NHWC."""
+def upsample2x_bilinear(x: torch.Tensor, rows: Optional[RowShard] = None) -> torch.Tensor:
+    """Keras UpSampling2D(interpolation='bilinear') equivalent, NHWC. With
+    ``rows`` (x's level), ``x`` is this rank's rows and the result its rows
+    of the level above."""
+    if rows is not None:
+        plan = upsample_row_plan(rows)
+        return upsample2x_rows_local(extend_rows(x, rows, plan), plan, rows.index)
     n, h, w, c = x.shape
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(2 * h, 2 * w),
                       mode="bilinear", align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1)
+
+
+def upsample_row_plan(rows: RowShard) -> HaloPlan:
+    """Output rows ``[2a, 2b)`` read input rows ``[a - 1, b + 1)``: half-pixel
+    output row ``2i`` mixes input rows ``i - 1`` and ``i``, row ``2i + 1``
+    rows ``i`` and ``i + 1``."""
+    lvl = rows.level
+    if rows.heights[lvl - 1] != 2 * rows.height:
+        raise ValueError(f"a row-sharded 2x upsample needs level {lvl - 1} to be twice level "
+                         f"{lvl}: {rows.heights[lvl - 1]} vs {rows.height}")
+    return halo_plan(rows.parts[lvl], rows.parts[lvl - 1], rows.height,
+                     lambda so, eo: (so // 2 - 1, -(-eo // 2) + 1))
+
+
+def upsample2x_rows_local(ext: torch.Tensor, plan: HaloPlan, q: int) -> torch.Tensor:
+    """Rank ``q``'s upsampled rows from ``ext`` (``plan.need[q]``): an edge row
+    repeated where the rank touches the image's border (the clamp), then
+    the whole strip upsampled and its first and last two rows (the strip's
+    own clamp) dropped. A rank with no rows upsamples two zero rows and
+    keeps none."""
+    if plan.need[q] is None:
+        z = ext.new_zeros((ext.shape[0], 2, *ext.shape[2:]))
+        return upsample2x_bilinear(torch.cat([ext, z], dim=1)).narrow(1, 0, 0)
+    top, bottom = plan.lo[q] < 0, plan.hi[q] > plan.height
+    e = torch.cat(([ext[:, :1]] if top else []) + [ext] + ([ext[:, -1:]] if bottom else []),
+                  dim=1)
+    return upsample2x_bilinear(e).narrow(1, 2, 2 * e.shape[1] - 4)

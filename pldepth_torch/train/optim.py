@@ -34,6 +34,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from pldepth_torch.core.device import wide
+
 
 @dataclasses.dataclass
 class AmsGradState:
@@ -56,10 +58,11 @@ class AmsGradState:
 
 
 def flat_grad(params: List[torch.Tensor]) -> torch.Tensor:
-    """The params' ``.grad`` as one flat f32 tensor (a missing grad is 0):
-    the buffer the data-parallel step all-reduces."""
-    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
-                      for p in params]).to(torch.float32)
+    """The params' ``.grad`` as one flat f32 tensor (float64 for float64
+    params; a missing grad is 0): the buffer the data-parallel step
+    all-reduces."""
+    return wide(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                           for p in params]))
 
 
 class AmsGrad:
@@ -76,7 +79,8 @@ class AmsGrad:
     def init(self, params: List[torch.Tensor]) -> AmsGradState:
         n = sum(p.numel() for p in params)
         dev = params[0].device if params else torch.device("cpu")
-        z = lambda: torch.zeros(n, dtype=torch.float32, device=dev)  # noqa: E731
+        dt = wide(params[0].detach()[:0]).dtype if params else torch.float32
+        z = lambda: torch.zeros(n, dtype=dt, device=dev)  # noqa: E731
         i = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
         if self.every_k > 1:
             return AmsGradState(i(), z(), z(), z(), i(), i(), z())

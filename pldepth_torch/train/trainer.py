@@ -35,6 +35,24 @@ stay bit-equal; ``replicate`` copies rank 0's state after init and
 restore. With no process group every one of these is the single-process
 step, unchanged.
 
+The mesh's model axis (``cfg.mesh.model`` = M > 1): world = data x model,
+rank r at data index r // M. Without ``spatial_sharding`` the M ranks of a
+data index hold the same rows and compute the same step; the loss is
+scaled by 1/(D M), the flat gradient and the BN sums run over the world
+(every row counted M times, which leaves the mean and the variance as
+they are), and the draws, the feed and the store are keyed by the data
+index. With ``spatial_sharding`` (``pldepth_tpu`` ``Trainer._spatial_axis``)
+each rank holds a range of image rows (ops/halo.py ``RowShard``; a batch
+given at full height is cut to the rank's rows on the host before the
+upload): the forward exchanges halos, the squeeze-excite means sum over
+the model ranks, BN sums over the world, the sampler reads the gt and mask
+gathered over the model ranks, and the loss (K1 on the card) reads the
+prediction map gathered over them, so every model rank computes the
+unsharded loss of its data index; each rank's backward gives its share of
+the gradient, and the world's sum of those is the single-process gradient.
+Under spatial sharding ff_redweb and the options qres, qenc, sparse_tail,
+remat_encoder and grad_accum raise (:func:`check_ported_options`).
+
 The single-device training options of the JAX package: ``grad_accum``
 (train/optim.py, optax ``MultiSteps``), ``remat_encoder``
 (models/pldepth_net.py ``remat_encoder``), ``sparse_tail`` (the head at
@@ -60,6 +78,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pldepth_torch.core import mesh as mesh_lib
 from pldepth_torch.core.config import ExperimentConfig, sampler_name_for_type
 from pldepth_torch.core.device import DeviceLike, resolve_device
 from pldepth_torch.core.mesh import Mesh, RowsGenerator, make_mesh
@@ -67,12 +86,14 @@ from pldepth_torch.core.mesh import pad_to_batch  # noqa: F401  (importable here
 from pldepth_torch.core.rng import generator
 from pldepth_torch.data.preprocess import normalize_images, random_flip_batch
 from pldepth_torch.data.resident import decode_gt
+from pldepth_torch.models.efficientnet import SPATIAL_LEVELS
 from pldepth_torch.models.layers import TrainPass
 from pldepth_torch.models.pldepth_net import (
     EffNetFullyFledged,
     freeze_params,
     get_pl_depth_net,
 )
+from pldepth_torch.ops.halo import RowShard
 from pldepth_torch.ops.listmle import pl_ranking_loss, pl_ranking_loss_from_scores
 from pldepth_torch.ops.sparse_tail import pixels_of
 from pldepth_torch.sampling import sample_rankings_batch
@@ -81,20 +102,29 @@ from pldepth_torch.train.schedules import build_schedule
 
 log = logging.getLogger(__name__)
 
-# training options of the JAX package that later slices port
-_NOT_PORTED_OPTIONS = (("spatial_sharding", "item 11, spatial sharding"),)
+# what the spatially sharded step does not run yet, each with its
+# ROADMAP.md queue 1 sub-item of item 11
+_NOT_PORTED_SPATIAL = (
+    ("ff_redweb", lambda cfg: "redweb" in cfg.model_name, "11.1"),
+    ("qres", lambda cfg: bool(cfg.qres), "11.2"),
+    ("qenc", lambda cfg: bool(cfg.qenc), "11.3"),
+    ("sparse_tail", lambda cfg: cfg.sparse_tail, "11.4"),
+    ("remat_encoder", lambda cfg: cfg.remat_encoder, "11.5"),
+    ("grad_accum", lambda cfg: cfg.grad_accum > 1, "11.6"),
+)
 
 
-def check_ported_options(cfg: ExperimentConfig) -> None:
-    """Raise NotImplementedError naming the ROADMAP item of any training
-    option the port does not run yet."""
-    for name, item in _NOT_PORTED_OPTIONS:
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"{name}={getattr(cfg, name)!r} is not ported yet: ROADMAP.md queue 1 {item}")
-    if cfg.mesh.model != 1:
-        raise NotImplementedError(
-            "a mesh model axis is not ported yet: ROADMAP.md queue 1 item 11, spatial sharding")
+def check_ported_options(cfg: ExperimentConfig, mesh: Mesh) -> None:
+    """Raise NotImplementedError naming the ROADMAP item of a training
+    option the port does not run yet on ``mesh``'s layout: under spatial
+    sharding (``spatial_sharding`` with a model axis > 1), ff_redweb and
+    the options qres, qenc, sparse_tail, remat_encoder and grad_accum."""
+    if not (cfg.spatial_sharding and mesh.model > 1):
+        return
+    for name, used, item in _NOT_PORTED_SPATIAL:
+        if used(cfg):
+            raise NotImplementedError(f"{name} under spatial sharding is not ported yet: "
+                                      f"ROADMAP.md queue 1 item {item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,13 +183,15 @@ class _HostResult:
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, steps_per_epoch: int = 1,
                  device: DeviceLike = None, mesh: Optional[Mesh] = None):
-        """``mesh``: the process's place in a data-parallel group (default:
-        core/mesh.py ``make_mesh(cfg.mesh)`` of the process's group, a world
-        of one without a group); ``device`` defaults to the mesh's card."""
+        """``mesh``: the process's place in the group's (data, model) layout
+        (default: core/mesh.py ``make_mesh(cfg.mesh)`` of the process's
+        group, a world of one without a group); ``device`` defaults to the
+        mesh's card."""
         self.cfg = cfg
         self.steps_per_epoch = max(1, steps_per_epoch)
-        check_ported_options(cfg)
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
+        check_ported_options(cfg, self.mesh)
+        self._rows: Optional[RowShard] = None
         self.device = resolve_device(
             self.mesh.device if device is None and self.mesh.active else device)
         self.model = get_pl_depth_net(
@@ -229,13 +261,57 @@ class Trainer:
         return state
 
     # ------------------------------------------------------------------
+    # spatial sharding
+    # ------------------------------------------------------------------
+    def _spatial(self) -> Optional[RowShard]:
+        """This rank's rows under spatial sharding (``pldepth_tpu``
+        ``Trainer._spatial_axis``): None without the flag or with a model
+        axis of 1; ValueError where ``input_size`` does not split over the
+        model axis, as in the JAX package."""
+        if not self.cfg.spatial_sharding or self.mesh.model <= 1:
+            return None
+        m = self.mesh.model
+        if self.cfg.input_size % m:
+            raise ValueError(f"input_size {self.cfg.input_size} not divisible by the "
+                             f"spatial (model) axis of size {m}")
+        if self._rows is None:
+            self._rows = RowShard.for_mesh(self.mesh, self.cfg.input_size, SPATIAL_LEVELS)
+        return self._rows
+
+    def _step_rows(self) -> Optional[RowShard]:
+        """:meth:`_spatial` for a step, which exchanges rows: it needs the
+        model group of a process group."""
+        rows = self._spatial()
+        if rows is not None and not self.mesh.model_active:
+            raise RuntimeError("a spatially sharded step needs the model group of a process "
+                               "group (core/mesh.py init_distributed, then make_mesh)")
+        return rows
+
+    def input_rows(self) -> Optional[Tuple[int, int]]:
+        """This rank's image rows ``(start, end)`` under spatial sharding
+        (the resident store's slice), else None."""
+        rows = self._spatial()
+        return None if rows is None else rows.span
+
+    def shard_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's part of a global host batch (``pldepth_tpu``
+        ``Trainer.shard_batch``): its data index's block of rows and, under
+        spatial sharding, its image rows of "image", "gt" and "mask"."""
+        return mesh_lib.shard_batch(self.mesh, batch, self.input_rows())
+
+    # ------------------------------------------------------------------
     # steps
     # ------------------------------------------------------------------
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
         """Host (numpy) or device batch -> f32 tensors on the device; uint8
-        images are rescaled to [0, 1]."""
+        images are rescaled to [0, 1]. Under spatial sharding an "image",
+        "gt" or "mask" given at the image's full height is cut to this
+        rank's rows first (on the host for a host batch)."""
+        rows = self._spatial()
         out = {}
         for k, v in batch.items():
+            if rows is not None and k in ("image", "gt", "mask") and v.shape[1] == rows.height:
+                v = v[:, rows.span[0]:rows.span[1]]
             t = torch.as_tensor(v).to(self.device, non_blocking=True)
             if k == "image" and t.dtype == torch.uint8:
                 t = t.to(torch.float32) / 255.0
@@ -244,17 +320,24 @@ class Trainer:
 
     def _gen(self, state: TrainState, tag: str) -> RowsGenerator:
         """The step's generator of ``tag``; its batch draws are made at the
-        global batch's shape and this rank keeps its rows."""
+        global batch's shape and this rank keeps the rows of its data
+        index."""
         return RowsGenerator(generator(state.seed, f"train/{tag}", state.step, self.device),
-                             self.mesh.rank, self.mesh.data)
+                             self.mesh.data_index, self.mesh.data)
 
     @torch.no_grad()
     def _rankings(self, state: TrainState, b: Dict[str, torch.Tensor]):
-        """Flip augmentation + on-device ranking sampling of one batch."""
+        """Flip augmentation + on-device ranking sampling of one batch. The
+        flip is horizontal, so a rank flips its own rows; under spatial
+        sharding the sampler reads the whole gt and mask, gathered over the
+        model ranks."""
         cfg = self.cfg
         images, gts, masks = b["image"], b["gt"], b["mask"]
         if cfg.augmentation:
             images, gts, masks = random_flip_batch(self._gen(state, "flip"), images, gts, masks)
+        rows = self._step_rows()
+        if rows is not None:
+            gts, masks = rows.gather(gts), rows.gather(masks)
         rankings = sample_rankings_batch(
             self._gen(state, "sample"), gts, masks,
             sampler_name=self.sampler_name,
@@ -280,22 +363,28 @@ class Trainer:
             kw["pixels"] = pixels_of(rankings, x.shape[2])
         if cfg.qenc:
             kw["encoder"] = self._qenc_encoder(module)
+        rows = self._step_rows()
+        if rows is not None:
+            kw["rows"] = rows
         for p in params:
             p.grad = None
         pred = module(x, train, **kw)
+        if rows is not None:  # the whole map of the data index on each model rank
+            pred = rows.gather(pred)
         if cfg.sparse_tail:
             loss = pl_ranking_loss_from_scores(pred, rankings, impl=cfg.listmle_impl)
         else:
             loss = pl_ranking_loss(pred, rankings, impl=cfg.listmle_impl)
         mesh = self.mesh
-        # each rank's share of the global mean (K1 means over its own lists)
-        (loss * (1.0 / mesh.data) if mesh.active else loss).backward()
+        # each rank's share of the global mean (K1 means over its data
+        # index's lists, which the model ranks of that index all compute)
+        (loss * (1.0 / mesh.world) if mesh.active else loss).backward()
         loss = loss.detach()
         with torch.no_grad():
             grad = flat_grad(params)
             if mesh.active:
                 mesh.reduce_(grad)
-                loss = mesh.reduce_(loss.clone()) / mesh.data
+                loss = mesh.reduce_(loss.clone()) / mesh.world
             finite = self.optimizer.step(params, state.opt, torch.isfinite(loss), grad=grad)
             for bn, new in train.new_stats.items():
                 for buf, v in zip((bn.running_mean, bn.running_var), new):
@@ -360,15 +449,17 @@ class Trainer:
         gt_scale``, the scale a device tensor); image and mask stay uint8
         for ``_to_device``. ``idx`` injects the rows. Under a process group
         ``batch_size`` is the global batch: each rank draws ``batch_size //
-        W`` rows from its shard, rank r > 0 with r folded into the key (the
-        JAX draw's ``fold_in(key, axis_index)``)."""
+        D`` rows from its data index's shard, data index d > 0 folded into
+        the key (the JAX draw's ``fold_in(key, axis_index(data))``), so the
+        model ranks of one data index draw the same samples (under spatial
+        sharding each holds its rows of them)."""
         image = arrays["image"]
         if idx is None:
-            data, rank = self.mesh.data, self.mesh.rank
+            data, index = self.mesh.data, self.mesh.data_index
             if self.cfg.batch_size % data:
                 raise ValueError(
                     f"batch_size {self.cfg.batch_size} not divisible by data axis {data}")
-            tag = "train/resident" + (f"/{rank}" if rank else "")
+            tag = "train/resident" + (f"/{index}" if index else "")
             gen = generator(state.seed, tag, state.step, image.device)
             idx = torch.randint(0, image.shape[0], (self.cfg.batch_size // data,),
                                 generator=gen, device=image.device)
@@ -391,7 +482,7 @@ class Trainer:
         The same result as ``n`` calls of ``resident_step`` (the draws are
         keyed by step). ``n <= 1`` gives ``resident_step`` itself. The steps
         are queued one by one from Python; one CUDA graph of the chain (the
-        JAX package's single dispatch) is ROADMAP.md queue 1 item 11 / P3."""
+        JAX package's single dispatch) is a speed property, ROADMAP.md P3."""
         if n <= 1:
             return self.resident_step
 
@@ -410,12 +501,16 @@ class Trainer:
     def eval_step(self, state: TrainState, batch) -> torch.Tensor:
         """Loss of the inference forward (running statistics) on an
         {"image", "rankings"} batch: K1 forward only. Under a process group
-        each rank passes its rows and gets the global mean."""
+        each rank passes its rows and gets the global mean; under spatial
+        sharding the forward is sharded and the loss reads the gathered
+        map."""
+        rows = self._step_rows()
         b = self._to_device(batch)
-        pred = state.model(normalize_images(b["image"], self.model.preprocess))
+        x = normalize_images(b["image"], self.model.preprocess)
+        pred = state.model(x) if rows is None else rows.gather(state.model(x, rows=rows))
         loss = pl_ranking_loss(pred, b["rankings"], impl=self.cfg.listmle_impl)
         if self.mesh.active:
-            loss = self.mesh.reduce_(loss.clone()) / self.mesh.data
+            loss = self.mesh.reduce_(loss.clone()) / self.mesh.world
         return loss
 
     def _images(self, images) -> torch.Tensor:
@@ -556,7 +651,9 @@ class Trainer:
     def jit_predict(self, fused=False) -> Callable:
         """The serving callable ``(state, images) -> predictions`` for a
         serving mode, memoised per mode. There is no jit: PyTorch runs
-        eagerly. On the card the result is handed back as it is copied to
+        eagerly. Under a process group each rank serves the images it is
+        given, whole (data-parallel, replicated over a model axis, as the
+        JAX package serves). On the card the result is handed back as it is copied to
         host memory, so ``np.asarray`` on it waits for that batch only
         (serve/pipeline.py keeps the next batch queued meanwhile).
         ``"quant"`` takes the ``QuantState`` of ``prepare_quant`` in place of

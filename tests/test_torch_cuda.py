@@ -828,3 +828,44 @@ def test_two_ranks_on_the_card_match_the_single_process_step(cuda_device):
                               "ranking_loss_bwd": smoke.DP_STEPS}
     for k, v in ranks[0]["state"].items():
         assert torch.equal(v, ranks[1]["state"][k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+def test_sharded_conv_on_the_card_equals_the_unsharded_conv(m, cuda_device):
+    """ops/conv.py's row-sharded conv (and ops/resize.py's upsample and
+    ops/fused_tail.py's tail) on CUDA tensors: each rank's rows, cut from
+    the whole f32 tensor with its halo, equal the unsharded op on the card
+    within 1e-5 of its largest value (cuDNN may convolve other row counts
+    with another algorithm); B0's 448^2 partition over ``m`` ranks, 3 x 3
+    and 5 x 5 at stride 1 and 2."""
+    from pldepth_torch.ops import conv, fused_tail, halo, resize
+
+    heights = halo.level_heights(448, 5)
+    parts = halo.row_partition(heights, m)
+    gen = torch.Generator(device="cuda").manual_seed(m)
+
+    def close(got, want):
+        assert got.shape == want.shape
+        if want.numel():
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    for lvl, k, stride in ((0, 3, 2), (2, 5, 1), (3, 5, 2), (5, 3, 1)):
+        x = torch.randn(2, heights[lvl], heights[lvl], 8, device="cuda", generator=gen)
+        w = torch.randn(8, 1, k, k, device="cuda", generator=gen)
+        full = conv.conv2d_same_nhwc(x, w, stride, groups=8)
+        for q in range(m):
+            plan = conv.conv_row_plan(halo.RowShard(heights, parts, q, lvl), k, stride)
+            got = conv.conv2d_rows_local(halo.extend_from_full(x, plan, q), w, stride, 8, None,
+                                         plan, q)
+            s, e = parts[lvl + stride - 1][q]
+            close(got, full[:, s:e])
+    x = torch.randn(2, heights[1], heights[1], 16, device="cuda", generator=gen)
+    w, b = torch.randn(1, 16, 3, 3, device="cuda", generator=gen), torch.zeros(1, device="cuda")
+    up, tail = resize.upsample2x_bilinear(x), fused_tail.fused_upsample2x_conv(x, w, b)
+    for q in range(m):
+        plan = resize.upsample_row_plan(halo.RowShard(heights, parts, q, 1))
+        ext = halo.extend_from_full(x, plan, q)
+        s, e = parts[0][q]
+        close(resize.upsample2x_rows_local(ext, plan, q), up[:, s:e])
+        close(fused_tail.fused_tail_rows_local(ext, w, b, plan, q), tail[:, s:e])

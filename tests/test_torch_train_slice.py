@@ -248,19 +248,43 @@ def test_config_json_precedence_matches_jax():
     assert (got["input_size"], got["batch_size"], got["freeze_encoder"]) == (448, 32, False)
 
 
+SMALL_RUN = ["--model_name", "ff_smoke", "--input_size", "64", "--ds_size", "8", "--batch_size",
+             "2", "--epochs", "1", "--rankings_per_image", "8", "--compute_dtype", "float32"]
+
+
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--mesh_model", "4"], "item 11", id="flags1-item 11"),
-    pytest.param(["--mesh_model", "2"], "item 11", id="flags2-item 11"),
-    pytest.param(["--spatial_sharding", "true"], "item 11", id="flags3-item 11"),
-    pytest.param(["--spatial_sharding", "true", "--qres", "int8"], "item 11",
+    pytest.param(["--mesh_model", "4"], "make_mesh", id="flags1-item 11"),
+    pytest.param(["--mesh_model", "2"], "make_mesh", id="flags2-item 11"),
+    pytest.param(["--spatial_sharding", "true"], "no-op", id="flags3-item 11"),
+    pytest.param(["--spatial_sharding", "true", "--qres", "int8"], "no-op",
                  id="flags6-item 11"),
 ])
 def test_cli_train_unported_options_name_their_item(flags, item, tmp_path):
-    from pldepth_torch.cli import main
+    """The mesh flags at world 1 (one process), as the JAX package has them:
+    a model axis that does not divide the world is ``make_mesh``'s error
+    (``MeshConfig.resolved_data``: the same message, nothing written; JAX
+    asserts, the port raises ValueError); ``--spatial_sharding`` with a
+    model axis of 1 is a no-op (``_spatial_axis`` is None), so the run
+    equals the same run without the flag."""
+    from pldepth_torch.cli import _parser, main, train
+    from pldepth_tpu.core.config import MeshConfig as JMeshConfig
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        main(["train", "--device", "cpu", "--output_dir", str(tmp_path), *flags])
-    assert not any(tmp_path.iterdir())  # nothing written
+    if item == "make_mesh":
+        with pytest.raises(AssertionError) as want:
+            make_mesh(JMeshConfig(model=int(flags[1])), devices=jax.devices()[:1])
+        with pytest.raises(ValueError) as got:
+            main(["train", "--device", "cpu", "--output_dir", str(tmp_path), *flags])
+        assert str(got.value) == str(want.value)
+        assert not any(tmp_path.iterdir())  # nothing written
+        return
+    jtr = JTrainer(JConfig(model_name="ff_smoke", input_size=64, spatial_sharding=True),
+                   steps_per_epoch=1, mesh=make_mesh(devices=jax.devices()[:1]))
+    assert jtr._spatial_axis() is None
+    base = ["train", "--device", "cpu", "--output_dir", str(tmp_path), *SMALL_RUN, *flags[2:]]
+    with_flag = train(_parser().parse_args(base + ["--run_name", "flag", *flags[:2]]))
+    without = train(_parser().parse_args(base + ["--run_name", "plain"]))
+    assert with_flag["step"] == without["step"] > 0
+    assert with_flag["loss"] == without["loss"] and np.isfinite(with_flag["loss"]).all()
 
 
 @pytest.mark.parametrize("dataset", ["IBIMS", "TUM", "DIODE", "SINTEL"])
