@@ -14,11 +14,15 @@
 (models/bn_fold.py). With ``pixels`` (B, N, 2) full-resolution (row, col)
 both decoders run their last upsample and head only at those pixels
 (ops/sparse_tail.py; skip-concat: window 3, the fused tail off; ReDWeb:
-window 1) and return (B, N) f32 depths; everything before stays dense.
+window 1) and return (B, N) f32 depths (float64 in a float64 network);
+everything before stays dense.
 
-The skip-concat decoder runs spatially sharded when given ``rows`` (the
-top's level, ops/halo.py): every conv, upsample and the fused tail read
-their halos, and it returns this rank's rows of the depth map.
+Both decoders run spatially sharded when given ``rows`` (the top's level,
+ops/halo.py): every conv, upsample and the fused tail read their halos,
+and they return this rank's rows of the depth map; with ``pixels`` too,
+each rank scores the pixels it owns from its rows and the scores are
+summed over the model ranks (ops/sparse_tail.py), so every model rank
+returns the (B, N) scores of the whole map.
 """
 
 from __future__ import annotations
@@ -33,24 +37,36 @@ from pldepth_torch.models.layers import Conv, TrainPass
 from pldepth_torch.models.quantize import ConvBNScope
 from pldepth_torch.ops.conv import conv2d_same_nhwc
 from pldepth_torch.ops.fused_tail import fused_upsample2x_head
-from pldepth_torch.ops.halo import RowShard
-from pldepth_torch.ops.resize import upsample2x_bilinear
-from pldepth_torch.ops.sparse_tail import sparse_upsample2x_taps
+from pldepth_torch.ops.halo import RowShard, extend_rows
+from pldepth_torch.ops.resize import upsample2x_bilinear, upsample_row_plan
+from pldepth_torch.ops.sparse_tail import sparse_taps_rows_local, sparse_upsample2x_taps
 
 
-def _head_at(head: Conv, x: torch.Tensor, pixels: torch.Tensor) -> torch.Tensor:
+def _head_at(head: Conv, x: torch.Tensor, pixels: torch.Tensor,
+             rows: Optional[RowShard] = None) -> torch.Tensor:
     """``head(upsample2x_bilinear(x))`` at ``pixels`` only, (B, N) f32: the
     head's window of bilinear taps around each pixel, convolved VALID (the
-    centre of the JAX package's SAME conv of the patch)."""
+    centre of the JAX package's SAME conv of the patch). With ``rows``
+    (x's level), each rank scores the pixels it owns and the scores are
+    summed over the model ranks."""
     k = head.weight.shape[-1]
-    tap = sparse_upsample2x_taps(x, pixels, window=k)  # (B, N, k, k, C)
+    if rows is None:
+        tap = sparse_upsample2x_taps(x, pixels, window=k)  # (B, N, k, k, C)
+    else:
+        plan = upsample_row_plan(rows)
+        tap, owned = sparse_taps_rows_local(extend_rows(x, rows, plan), pixels, k, plan,
+                                            rows.index, rows.parts[rows.level - 1][rows.index])
     b, n = tap.shape[:2]
     dt = head.dtype
     y = conv2d_same_nhwc(tap.reshape(b * n, k, k, tap.shape[-1]).to(dt), head.weight.to(dt),
                          padding=0)
     if head.bias is not None:
         y = y + head.bias.to(dt)
-    return y.reshape(b, n).to(torch.float32)
+    y = wide(y.reshape(b, n))
+    if rows is None:
+        return y
+    return rows.mesh.model_sum(torch.where(owned, y, torch.zeros((), dtype=y.dtype,
+                                                                  device=y.device)))
 
 
 class SkipConcatDecoder(ConvBNScope):
@@ -89,7 +105,7 @@ class SkipConcatDecoder(ConvBNScope):
         x = upsample2x_bilinear(self._conv_bn_relu(x, 3, train, at(3)), at(3))  # -> 1/2
         x = self._conv_bn_relu(x.contiguous(), 4, train, at(4))
         if pixels is not None:
-            return _head_at(self.head, x, pixels)
+            return _head_at(self.head, x, pixels, at(4))
         if self.fused_tail:
             return wide(fused_upsample2x_head(x, self.head.weight, self.head.bias, at(4)))
         return wide(self.head(upsample2x_bilinear(x, at(4)).contiguous(), at(5)))
@@ -107,11 +123,12 @@ class ResidualBottleneckPair(ConvBNScope):
             self.add_conv(f"u{u}_conv1", ch // 4, ch // 4, 3, bias=self.fold)
             self.add_conv(f"u{u}_conv2", ch // 4, ch, 1, bias=self.fold)
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
         for u in range(2):
-            y = torch.relu(self.conv_bn(x, f"u{u}_conv0", train))
-            y = torch.relu(self.conv_bn(y, f"u{u}_conv1", train))
-            x = torch.relu(self.conv_bn(y, f"u{u}_conv2", train) + x)
+            y = torch.relu(self.conv_bn(x, f"u{u}_conv0", train, rows))
+            y = torch.relu(self.conv_bn(y, f"u{u}_conv1", train, rows))
+            x = torch.relu(self.conv_bn(y, f"u{u}_conv2", train, rows) + x)
         return x
 
 
@@ -128,10 +145,13 @@ class FeatureFusion(ConvBNScope):
         self.fuse_block = ResidualBottleneckPair(ch, dtype, bn_fold, quant)
 
     def forward(self, lateral: torch.Tensor, up: torch.Tensor,
-                train: Optional[TrainPass] = None) -> torch.Tensor:
-        left = self.lateral_block(self.conv_bn(lateral, "lateral_conv", train), train)
-        x = left + self.conv_bn(up, "up_conv", train)
-        return upsample2x_bilinear(self.fuse_block(x, train))
+                train: Optional[TrainPass] = None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
+        """``rows``: the inputs' level; the result is at the level above."""
+        left = self.lateral_block(self.conv_bn(lateral, "lateral_conv", train, rows), train,
+                                  rows)
+        x = left + self.conv_bn(up, "up_conv", train, rows)
+        return upsample2x_bilinear(self.fuse_block(x, train, rows), rows)
 
 
 class AdaptiveOutput(ConvBNScope):
@@ -147,11 +167,13 @@ class AdaptiveOutput(ConvBNScope):
         self.conv2 = Conv(1, 1, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
-                pixels: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.conv1(torch.relu(self.conv_bn(x, "conv0", train)))
+                pixels: Optional[torch.Tensor] = None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
+        x = self.conv1(torch.relu(self.conv_bn(x, "conv0", train, rows)), rows)
         if pixels is not None:
-            return _head_at(self.conv2, x, pixels)
-        return self.conv2(upsample2x_bilinear(x).contiguous()).to(torch.float32)
+            return _head_at(self.conv2, x, pixels, rows)
+        up = None if rows is None else rows.at(rows.level - 1)
+        return wide(self.conv2(upsample2x_bilinear(x, rows).contiguous(), up))
 
 
 class ReDWebDecoder(nn.Module):
@@ -172,10 +194,15 @@ class ReDWebDecoder(nn.Module):
         self.output = AdaptiveOutput(up_ch, dtype, bn_fold, quant)
 
     def forward(self, c5: torch.Tensor, taps: Dict[str, torch.Tensor],
-                train: Optional[TrainPass] = None, pixels=None) -> torch.Tensor:
+                train: Optional[TrainPass] = None, pixels=None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
         if self.fold and train is not None:
             raise ValueError("bn_fold is an inference-only mode (train=False)")
-        x = upsample2x_bilinear(c5)  # 1/32 -> 1/16
+
+        def at(step):  # the rows ``step`` upsamplings above c5
+            return None if rows is None else rows.at(rows.level - step)
+
+        x = upsample2x_bilinear(c5, at(0))  # 1/32 -> 1/16
         for i, tap in enumerate(self.TAPS):  # 1/16 -> 1/8 -> 1/4 -> 1/2
-            x = getattr(self, f"fusion{i}")(taps[tap], x, train)
-        return self.output(x, train, pixels)  # -> 1/1
+            x = getattr(self, f"fusion{i}")(taps[tap], x, train, at(i + 1))
+        return self.output(x, train, pixels, at(4))  # -> 1/1

@@ -94,16 +94,26 @@ def _bn_act(bn: BatchNorm, x: torch.Tensor, train: Optional[TrainPass],
 
 
 class SqueezeExcite(nn.Module):
+    """``exact_mean``: the spatial mean is summed in float64 and rounded
+    once, so the whole image and its row-sharded pieces give the same bits
+    (the int8 graph: a mean one bit apart flips the int8 rounding of the
+    activations it gates, and the sharded step leaves the one-process step)."""
+
     def __init__(self, ch: int, reduce_ch: int, dtype: torch.dtype = torch.bfloat16,
-                 qres=None):
+                 qres=None, exact_mean: bool = False):
         super().__init__()
         self.reduce = Conv(ch, reduce_ch, 1, dtype=dtype)
         self.expand = Conv(reduce_ch, ch, 1, dtype=dtype)
-        self.dtype, self.qres = dtype, qres
+        self.dtype, self.qres, self.exact_mean = dtype, qres, exact_mean
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
                 rows: Optional[RowShard] = None) -> torch.Tensor:
-        if rows is None:
+        if self.exact_mean:
+            se = x.sum(dim=(1, 2), keepdim=True, dtype=torch.float64)
+            if rows is not None:
+                se = rows.mesh.model_sum(se)
+            se = se / ((x.shape[1] if rows is None else rows.height) * x.shape[2])
+        elif rows is None:
             se = wide(x).mean(dim=(1, 2), keepdim=True)
         else:  # the rank's row sums, summed over the model ranks
             se = rows.mesh.model_sum(wide(x).sum(dim=(1, 2), keepdim=True))
@@ -138,7 +148,8 @@ class MBConv(nn.Module):
                                  bias=fold)
         if not fold:
             self.dw_bn = _bn(ce, qres, dtype, "swish")
-        self.se = SqueezeExcite(ce, max(1, int(in_ch * se_ratio)), dtype=dtype, qres=qres)
+        self.se = SqueezeExcite(ce, max(1, int(in_ch * se_ratio)), dtype=dtype, qres=qres,
+                                 exact_mean=quant == "int8")
         self.project_conv = make_conv(quant, dtype, ce, out_ch, 1, bias=fold)
         if not fold:
             self.project_bn = _bn(out_ch, qres, dtype, None)

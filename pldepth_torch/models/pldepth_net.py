@@ -16,9 +16,11 @@ EfficientNet encoder with compressed BN residuals (ops/qres.py). A train
 forward given ``pixels`` returns the depths at those pixels only
 (ops/sparse_tail.py); the ff_effnet forward given ``encoder`` runs that
 serving graph of the encoder without gradient in its place (``qenc``,
-train/trainer.py). The ff_effnet forward given ``rows`` (an ops/halo.py
-``RowShard``, train and eval forwards alike) is spatially sharded: the
-input and the returned map are this rank's image rows.
+train/trainer.py). A forward of either family given ``rows`` (an
+ops/halo.py ``RowShard``, train and eval forwards alike) is spatially
+sharded: the input and the returned map are this rank's image rows (with
+``pixels``, every model rank gets the scores of the whole map); ``rows``
+composes with each of the options above.
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ from pldepth_torch.models.layers import TrainPass, reset_parameters
 from pldepth_torch.ops.halo import RowShard
 
 
-def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass):
-    """``encoder(x, train)`` under ``torch.utils.checkpoint``: its
+def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass,
+                  rows: Optional[RowShard] = None):
+    """``encoder(x, train, rows)`` under ``torch.utils.checkpoint``: its
     activations are recomputed in the backward pass instead of kept.
 
     The recompute must draw the same drop-path masks: they come from the
@@ -51,7 +54,11 @@ def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass):
     that run left it, as without remat. Only the first run's new BN
     statistics go into the pass (the recompute's are the same values and
     are dropped). Under a process group the recompute issues its BN
-    all-reduces again, in module order on every rank."""
+    all-reduces again, in module order on every rank; under spatial
+    sharding its halo exchanges and squeeze-excite sums too, in the same
+    order on every rank, a rank with no rows included (every rank's graph
+    holds the same ops, so autograd reaches the recompute at the same
+    point on each)."""
     gen = train.gen
     start = gen.get_state() if gen is not None else None
     first = True
@@ -65,7 +72,7 @@ def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass):
             g = torch.Generator(device=gen.device)
             g.set_state(start)
         inner = TrainPass(gen=g, mesh=train.mesh)
-        out = encoder(x, inner)
+        out = encoder(x, inner, rows)
         if first:
             first = False
             train.new_stats.update(inner.new_stats)
@@ -75,6 +82,25 @@ def remat_encoder(encoder: nn.Module, x: torch.Tensor, train: TrainPass):
 
     return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False,
                                              preserve_rng_state=False)
+
+
+def _encode(own: nn.Module, remat: bool, x: torch.Tensor, train: Optional[TrainPass],
+            encoder: Optional[nn.Module], rows: Optional[RowShard]):
+    """(top, taps) of the model's encoder ``own`` (under ``remat_encoder``
+    when ``remat`` in train mode) or of ``encoder``, a frozen serving graph
+    run without gradient (qenc); ``rows``: the input's rows (level 0)."""
+    rows = None if rows is None else rows.at(0)
+    if encoder is not None:
+        with torch.no_grad():
+            return encoder(x, rows=rows)
+    if remat and train is not None:
+        return remat_encoder(own, x, train, rows)
+    return own(x, train, rows)
+
+
+def _top_rows(rows: Optional[RowShard]) -> Optional[RowShard]:
+    """The rows at the encoder's top, the decoder's input level."""
+    return None if rows is None else rows.at(len(rows.heights) - 1)
 
 
 class EffNetFullyFledged(nn.Module):
@@ -101,18 +127,8 @@ class EffNetFullyFledged(nn.Module):
                 pixels: Optional[torch.Tensor] = None,
                 encoder: Optional[nn.Module] = None,
                 rows: Optional[RowShard] = None) -> torch.Tensor:
-        if rows is not None:  # spatially sharded (the plain step only)
-            top, taps = self.encoder(x, train, rows.at(0))
-            return self.decoder(top, taps, train, pixels,
-                                rows.at(len(rows.heights) - 1))
-        if encoder is not None:  # qenc: a frozen serving graph, no gradient
-            with torch.no_grad():
-                top, taps = encoder(x)
-        elif self.remat and train is not None:
-            top, taps = remat_encoder(self.encoder, x, train)
-        else:
-            top, taps = self.encoder(x, train)
-        return self.decoder(top, taps, train, pixels)
+        top, taps = _encode(self.encoder, self.remat, x, train, encoder, rows)
+        return self.decoder(top, taps, train, pixels, _top_rows(rows))
 
 
 class ReDWebFullyFledged(nn.Module):
@@ -131,12 +147,9 @@ class ReDWebFullyFledged(nn.Module):
                                      bn_fold=bn_fold, quant=quant)
 
     def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
-                pixels=None) -> torch.Tensor:
-        if self.remat and train is not None:
-            c5, taps = remat_encoder(self.encoder, x, train)
-        else:
-            c5, taps = self.encoder(x, train)
-        return self.decoder(c5, taps, train, pixels)
+                pixels=None, rows: Optional[RowShard] = None) -> torch.Tensor:
+        c5, taps = _encode(self.encoder, self.remat, x, train, None, rows)
+        return self.decoder(c5, taps, train, pixels, _top_rows(rows))
 
 
 @dataclasses.dataclass(frozen=True)

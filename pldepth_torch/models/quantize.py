@@ -26,6 +26,11 @@ The JAX package's default int8 graph rounds its dequant epilogue in bf16
 (an XLA int8 conv, then bf16 multiply-add); its Pallas kernel ``_kernel``
 does it in f32. The port follows the kernel (ROADMAP.md §3 gives the gap).
 
+Under spatial sharding (``rows``, ops/halo.py) a dense site quantizes its
+rank's rows, exchanges the int8 halo and runs K4's row-local window read
+(ops/quant_conv.py ``quant_conv2d_rows_local``); a depthwise site is the
+sharded float conv. Calibration runs unsharded.
+
 Flow: :func:`quantize_variables` folds BN, packs every site into
 ``{kernel_q, w_scale, bias, a_scale}``, runs the calibration forwards, and
 returns the ``state_dict`` of the ``quant="int8"`` model. Its two halves,
@@ -42,8 +47,9 @@ from torch import nn
 
 from pldepth_torch.models.bn_fold import fold_module
 from pldepth_torch.models.layers import BatchNorm, Conv, TrainPass
-from pldepth_torch.ops.conv import conv2d_same_nhwc
-from pldepth_torch.ops.quant_conv import pack_kernel, quant_conv2d
+from pldepth_torch.ops.conv import conv2d_same_nhwc, conv_row_plan
+from pldepth_torch.ops.halo import RowShard, abs_max, extend_rows
+from pldepth_torch.ops.quant_conv import pack_kernel, quant_conv2d, quant_conv2d_rows_local
 
 
 def activation_inv(a_scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -104,22 +110,32 @@ class QuantConv(nn.Module):
         self.derived()
         return self._memo[4]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: Optional[RowShard] = None) -> torch.Tensor:
+        """``rows``: x holds this rank's image rows (spatial sharding), and
+        so does the result."""
         dt = self.dtype
         w, inv, a_eff = self.derived()
         if self.calibrate:
-            amax = x.to(torch.float32).abs().amax()
+            if rows is not None:
+                raise ValueError("calibration runs unsharded (Trainer.prepare_quant)")
+            amax = abs_max(x.to(torch.float32))
             self.amax = amax if self.amax is None else torch.maximum(self.amax, amax)
             y = conv2d_same_nhwc(x.to(dt), w, self.stride, self.groups, self.padding)
             return (y.to(torch.float32) + self.bias).to(dt)
         if self.groups > 1:
             # depthwise: int8 weights, compute-dtype activations
-            y = conv2d_same_nhwc(x.to(dt), w, self.stride, self.groups, self.padding)
+            y = conv2d_same_nhwc(x.to(dt), w, self.stride, self.groups, self.padding, rows)
             return y + self.bias.to(dt)
-        return quant_conv2d(quantize_activation(x, inv), self.kernel_q, self.w_scale,
-                            self.bias, a_eff, self.stride, out_dtype=dt,
-                            padding=self.padding,
-                            w_packed=self._memo[4])  # derived() above made it current
+        q = quantize_activation(x, inv)
+        k = self.kernel_q.shape[0]
+        if rows is None or (k == 1 and self.stride == 1):  # a 1x1 stride-1 site reads no halo
+            return quant_conv2d(q, self.kernel_q, self.w_scale, self.bias, a_eff, self.stride,
+                                out_dtype=dt, padding=self.padding,
+                                w_packed=self._memo[4])  # derived() above made it current
+        plan = conv_row_plan(rows, k, self.stride, self.padding)
+        return quant_conv2d_rows_local(extend_rows(q, rows, plan), self.kernel_q, self.w_scale,
+                                       self.bias, a_eff, self.stride, dt, self.padding, plan,
+                                       rows.index, w_packed=self._memo[4])
 
 
 def make_conv(quant, dtype: torch.dtype, in_ch: int, out_ch: int, kernel: int,

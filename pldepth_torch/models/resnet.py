@@ -18,6 +18,13 @@ Submodule names are the flax ones (``stem_conv``, ``stage2_block0.conv1``,
 alone. ``stage_blocks`` and ``c4_tap_block`` cut the depth for tests.
 ``bn_fold=True`` builds the BN-folded inference graph, ``quant`` the int8
 one (models/quantize.py): every conv is a dense int8 site.
+
+A forward given ``rows`` (ops/halo.py ``RowShard`` at the input's level) is
+spatially sharded: the input holds this rank's image rows, every conv and
+the max pool read their halos (the pool's rows outside the image are
+-inf), and c5 and the taps are this rank's rows of their levels. Its five
+stride-2 steps (the stem, the pool, stages 3-5) are the EfficientNet
+encoder's ``SPATIAL_LEVELS``, so one row partition serves both families.
 """
 
 from __future__ import annotations
@@ -25,10 +32,11 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from pldepth_torch.models.layers import TrainPass
 from pldepth_torch.models.quantize import ConvBNScope
+from pldepth_torch.ops.conv import max_pool3x3s2
+from pldepth_torch.ops.halo import RowShard
 
 BN_EPS = 1.001e-5
 FILTERS = (64, 128, 256, 512)
@@ -44,7 +52,7 @@ class Bottleneck(ConvBNScope):
     def __init__(self, in_ch: int, filters: int, stride: int = 1, projection: bool = False,
                  dtype: torch.dtype = torch.bfloat16, bn_fold: bool = False, quant=False):
         super().__init__(dtype, bn_fold, quant, bn_eps=BN_EPS)
-        self.projection = projection
+        self.projection, self.stride = projection, stride
         out_ch = 4 * filters
         if projection:
             self.add_conv("proj_conv", in_ch, out_ch, 1, stride=stride)
@@ -52,11 +60,15 @@ class Bottleneck(ConvBNScope):
         self.add_conv("conv2", filters, filters, 3)
         self.add_conv("conv3", filters, out_ch, 1)
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None) -> torch.Tensor:
-        shortcut = self.conv_bn(x, "proj_conv", train) if self.projection else x
-        y = torch.relu(self.conv_bn(x, "conv1", train))
-        y = torch.relu(self.conv_bn(y, "conv2", train))
-        return torch.relu(self.conv_bn(y, "conv3", train) + shortcut)
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                rows: Optional[RowShard] = None) -> torch.Tensor:
+        """``rows``: x's level; the output is at ``rows.level + 1`` when
+        ``stride`` is 2 (the 1x1 stride-2 convs read no halo)."""
+        out = None if rows is None else rows.at(rows.level + self.stride - 1)
+        shortcut = self.conv_bn(x, "proj_conv", train, rows) if self.projection else x
+        y = torch.relu(self.conv_bn(x, "conv1", train, rows))
+        y = torch.relu(self.conv_bn(y, "conv2", train, out))
+        return torch.relu(self.conv_bn(y, "conv3", train, out) + shortcut)
 
 
 class ResNet50Encoder(ConvBNScope):
@@ -79,16 +91,25 @@ class ResNet50Encoder(ConvBNScope):
                     projection=(i == 0), dtype=dtype, bn_fold=bn_fold, quant=quant))
                 in_ch = 4 * FILTERS[stage]
 
-    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None):
+    def forward(self, x: torch.Tensor, train: Optional[TrainPass] = None,
+                rows: Optional[RowShard] = None):
         if self.fold and train is not None:
             raise ValueError("bn_fold is an inference-only mode (train=False)")
-        x = torch.relu(self.conv_bn(x.to(self.dtype), "stem_conv", train))
+
+        def down(rows, stride):  # the rows after a step of ``stride``
+            return None if rows is None else rows.at(rows.level + stride - 1)
+
+        x = torch.relu(self.conv_bn(x.to(self.dtype), "stem_conv", train, rows))
+        rows = down(rows, 2)
         # 3x3 stride-2 max pool, padded by 1 with -inf (flax nn.max_pool)
-        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+        x = max_pool3x3s2(x, rows)
+        rows = down(rows, 2)
         taps: Dict[str, torch.Tensor] = {}
         for stage, blocks in enumerate(self.stage_blocks, start=2):
             for i in range(blocks):
-                x = getattr(self, f"stage{stage}_block{i}")(x, train)
+                block = getattr(self, f"stage{stage}_block{i}")
+                x = block(x, train, rows)
+                rows = down(rows, block.stride)
                 if stage == 4 and i == self.c4_tap_block:
                     taps["c4_mid"] = x
             if stage in (2, 3):

@@ -247,6 +247,13 @@ def extend_rows(x: torch.Tensor, rows: RowShard, plan: HaloPlan) -> torch.Tensor
     return _Halo.apply(x, rows.mesh, plan, q)
 
 
+def abs_max(x: torch.Tensor) -> torch.Tensor:
+    """max |x| as a scalar of x's dtype, 0 for a tensor with no elements (a
+    rank of a spatially sharded step that owns no rows; ``amax`` refuses
+    those)."""
+    return x.abs().amax() if x.numel() else x.new_zeros(())
+
+
 def extend_from_full(full: torch.Tensor, plan: HaloPlan, q: int) -> torch.Tensor:
     """Rank ``q``'s extended rows cut from the whole tensor: what
     :func:`extend_rows` returns (the one-process tests' stand-in for the

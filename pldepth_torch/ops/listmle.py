@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from pldepth_torch.core.device import resolve_impl
+from pldepth_torch.core.device import resolve_impl, wide
 from pldepth_torch.ops.listmle_kernel import (  # noqa: F401  (gather_ranked_scores: API)
     gather_ranked_scores,
     listmle_fwd_plain,
@@ -34,15 +34,17 @@ from pldepth_torch.ops.listmle_kernel import (  # noqa: F401  (gather_ranked_sco
 
 
 def listmle_sorted_plain(s: torch.Tensor) -> torch.Tensor:
-    """NLL of label-sorted lists, plain PyTorch. s: (N, K) -> (N,)."""
-    return listmle_fwd_plain(s.to(torch.float32))[0]
+    """NLL of label-sorted lists, plain PyTorch. s: (N, K) -> (N,) f32
+    (float64 for float64 scores, as ``ranking_loss_plain``)."""
+    return listmle_fwd_plain(wide(s))[0]
 
 
 def listmle_nll(scores: torch.Tensor, labels: torch.Tensor, impl: str = "auto") -> torch.Tensor:
-    """Per-list Plackett-Luce NLL. scores, labels: (N, K) -> (N,) f32."""
+    """Per-list Plackett-Luce NLL. scores, labels: (N, K) -> (N,) f32 (the
+    plain version keeps float64 scores in float64)."""
     if scores.shape != labels.shape:
         raise ValueError(f"shape mismatch {tuple(scores.shape)} vs {tuple(labels.shape)}")
-    s = sort_by_labels_desc(scores.to(torch.float32), labels)
+    s = sort_by_labels_desc(wide(scores), labels)
     if resolve_impl(impl, scores.device) == "pallas":
         return listmle_sorted(s)
     return listmle_sorted_plain(s)

@@ -15,7 +15,8 @@ The forward is bit-identical to the standard path (models/layers.py
 then swish): the compression changes what the backward reads, nothing
 else. The backward rebuilds ``y = scale * x̂ + bias`` (rounded to the
 compute dtype, as the forward activated it) and applies the BN + swish
-VJP in f32. :func:`mul_q8` is the squeeze-excite multiply whose backward
+VJP in f32 (float64 in a float64 network: core/device.py ``wide``).
+:func:`mul_q8` is the squeeze-excite multiply whose backward
 reads its full-size input from int8 (``qres="int8"`` only). These are
 plain PyTorch: the JAX package has no Pallas kernel here.
 """
@@ -26,7 +27,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from pldepth_torch.core.device import wide
 from pldepth_torch.models.layers import BatchNorm, TrainPass, batch_moments, per_count, swish
+from pldepth_torch.ops.halo import abs_max
 
 STORES = ("int8", "bf16")
 
@@ -41,8 +44,9 @@ def _apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
 
 def _q8(x: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 r, f32 scale): symmetric per-tensor int8 of f32 ``x`` (the
-    global batch's ``amax`` under a process group)."""
-    amax = x.abs().amax()
+    global batch's ``amax`` under a process group: the ranks' maxima, a
+    rank with no rows of a spatially sharded step adding 0)."""
+    amax = abs_max(x)
     if mesh is not None:
         amax = mesh.max(amax)
     amax = torch.clamp(amax, min=1e-12)
@@ -58,7 +62,7 @@ class BnActTrain(torch.autograd.Function):
                 out_dtype: torch.dtype, mesh=None):
         if store not in STORES:
             raise ValueError(f"unknown store {store!r}")
-        xf = x.to(torch.float32)
+        xf = wide(x)
         mean, y, var = batch_moments(xf, mesh)
         inv = torch.rsqrt(var + eps)
         z = _apply_act((y * (inv * scale) + bias).to(out_dtype), act)
@@ -66,7 +70,7 @@ class BnActTrain(torch.autograd.Function):
         if store == "int8":
             r, r_scale = _q8(xhat, mesh)
         else:
-            r, r_scale = xhat.to(torch.bfloat16), torch.ones((), device=x.device)
+            r, r_scale = xhat.to(torch.bfloat16), torch.ones((), dtype=xhat.dtype, device=x.device)
         ctx.save_for_backward(r, r_scale, inv, scale, bias)
         ctx.act, ctx.out_dtype, ctx.x_dtype, ctx.mesh = act, out_dtype, x.dtype, mesh
         ctx.mark_non_differentiable(mean, var)
@@ -76,13 +80,13 @@ class BnActTrain(torch.autograd.Function):
     def backward(ctx, gz, g_mean, g_var):
         r, r_scale, inv, scale, bias = ctx.saved_tensors
         mesh = ctx.mesh
-        xhat = r.to(torch.float32) * r_scale
+        xhat = r.to(r_scale.dtype) * r_scale
         if ctx.act == "swish":
-            y = (xhat * scale + bias).to(ctx.out_dtype).to(torch.float32)
+            y = wide((xhat * scale + bias).to(ctx.out_dtype))
             s = torch.sigmoid(y)
-            dy = gz.to(torch.float32) * (s + y * s * (1.0 - s))
+            dy = wide(gz) * (s + y * s * (1.0 - s))
         else:
-            dy = gz.to(torch.float32)
+            dy = wide(gz)
         dims = tuple(range(dy.dim() - 1))
         n = dy.numel() // dy.shape[-1]
         sum_dy = dy.sum(dim=dims)
@@ -111,7 +115,7 @@ def bn_act_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: 
 class MulQ8(torch.autograd.Function):
     @staticmethod
     def forward(ctx, z, gate, mesh=None):
-        r, r_scale = _q8(z.to(torch.float32), mesh)
+        r, r_scale = _q8(wide(z), mesh)
         ctx.save_for_backward(r, r_scale, gate)
         ctx.z_dtype = z.dtype
         return z * gate
@@ -119,8 +123,8 @@ class MulQ8(torch.autograd.Function):
     @staticmethod
     def backward(ctx, go):
         r, r_scale, gate = ctx.saved_tensors
-        zq = (r.to(torch.float32) * r_scale).to(ctx.z_dtype)
-        dgate = (go * zq).to(torch.float32).sum(dim=(1, 2), keepdim=True).to(gate.dtype)
+        zq = (r.to(r_scale.dtype) * r_scale).to(ctx.z_dtype)
+        dgate = wide(go * zq).sum(dim=(1, 2), keepdim=True).to(gate.dtype)
         return go * gate, dgate, None
 
 

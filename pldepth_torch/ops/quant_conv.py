@@ -21,6 +21,13 @@ multiplies it. That is the kernel's plain twin; the card's route never
 calls it (``im2col_same.calls`` counts, chip_smoke.py gates it at 0).
 ``quant_conv2d.window_launches`` counts the launches of the window entry
 point (each also counts in ``quant_matmul.launches``).
+
+Row-sharded (spatial sharding, ops/halo.py): :func:`quant_conv2d_rows_local`
+convolves a rank's int8 rows extended by their halo (exchanged as int8) on
+the window entry point, which reads the rows outside the image as zero
+(exact: the zero-point is 0) through its row pad, and the whole image's
+column pad; its plain twin is :func:`quant_conv2d_rows_local_plain`. A
+rank with no output rows launches nothing.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from pldepth_torch.ops import quant_matmul as k4
-from pldepth_torch.ops.conv import conv_pads
+from pldepth_torch.ops.conv import conv_pads, row_pads
+from pldepth_torch.ops.halo import HaloPlan
 
 
 def _out_hw(h: int, w: int, k: int, stride: int,
@@ -53,7 +61,13 @@ def im2col_same(q: torch.Tensor, k: int, stride: int,
         qs = q if stride == 1 else q[:, ::stride, ::stride]
         return qs.reshape(b * ho * wo, c)
     pl, pr, pt, pb = pads
-    qp = F.pad(q, (0, 0, pl, pr, pt, pb)) if any(pads) else q
+    return _patches(F.pad(q, (0, 0, pl, pr, pt, pb)) if any(pads) else q, k, stride, ho, wo)
+
+
+def _patches(qp: torch.Tensor, k: int, stride: int, ho: int, wo: int) -> torch.Tensor:
+    """The (B * ho * wo, k * k * C) patch matrix of an already padded
+    (B, H, W, C) ``qp``, read VALID."""
+    b, c = qp.shape[0], qp.shape[3]
     cols = [qp[:, i: i + stride * (ho - 1) + 1: stride, j: j + stride * (wo - 1) + 1: stride, :]
             for i in range(k) for j in range(k)]
     return torch.cat(cols, dim=-1).reshape(b * ho * wo, k * k * c)
@@ -122,10 +136,22 @@ def quant_conv2d(q: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor,
         y = k4.quant_matmul(q.reshape(b * h * w, cin), kernel_q.reshape(cin, cout), w_scale,
                             bias, a_scale, act, out_dtype, w_packed=w_packed)
         return y.reshape(b, ho, wo, cout)
+    return _window(q, kernel_q, w_scale, bias, a_scale, stride, out_dtype, act, w_packed,
+                   ho, wo, pt, pl)
+
+
+def _window(q: torch.Tensor, kernel_q: torch.Tensor, w_scale, bias, a_scale, stride: int,
+            out_dtype: torch.dtype, act: Optional[str], w_packed: torch.Tensor, ho: int,
+            wo: int, pt: int, pl: int) -> torch.Tensor:
+    """K4's window entry point: (B, ho, wo, Cout) from ``q[b, ho s + i -
+    pt, wo s + j - pl, c]``, taps outside ``q`` zero."""
     if q.dtype != torch.int8 or kernel_q.dtype != torch.int8:
         raise TypeError(f"quant_conv2d: int8 operands only, got {q.dtype} and {kernel_q.dtype}")
     if act not in k4.ACTS or out_dtype not in k4._OUT_DTYPES:
         raise ValueError(f"quant_conv2d: act {act!r} or out_dtype {out_dtype} not taken")
+    kh, kw, cin, cout = kernel_q.shape
+    b, h, w, _ = q.shape
+    pad = -cin % CIN_ALIGN
     if pad:  # as pack_kernel pads the weight
         q, cin = F.pad(q, (0, pad)), cin + pad
     ws, bs, sa = k4.launch_operands(q, w_packed, kh * kw * cin, cout, w_scale, bias, a_scale)
@@ -141,3 +167,64 @@ def quant_conv2d(q: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor,
 
 # launches of the kernel's window entry point (a subset of quant_matmul.launches)
 quant_conv2d.window_launches = 0
+
+
+def _rows_out(ext: torch.Tensor, k: int, stride: int, pads) -> Tuple[int, int]:
+    """(output rows, output columns) of ``ext`` padded by ``pads``."""
+    pl, pr, pt, pb = pads
+    return ((ext.shape[1] + pt + pb - k) // stride + 1,
+            (ext.shape[2] + pl + pr - k) // stride + 1)
+
+
+def _empty_rows(ext: torch.Tensor, kernel_q: torch.Tensor, wo: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty((ext.shape[0], 0, wo, kernel_q.shape[3]), dtype=out_dtype,
+                       device=ext.device)
+
+
+def quant_conv2d_rows_local_plain(ext: torch.Tensor, kernel_q: torch.Tensor,
+                                  w_scale: torch.Tensor, bias: torch.Tensor, a_scale,
+                                  stride: int, out_dtype: torch.dtype,
+                                  padding: Optional[int], plan: HaloPlan, q: int,
+                                  act: Optional[str] = None) -> torch.Tensor:
+    """Plain PyTorch :func:`quant_conv2d_rows_local`: the extended rows
+    padded (ops/conv.py ``row_pads``: zero rows outside the image, the
+    image's column pads), their patch matrix through K4's plain version."""
+    _check(ext, kernel_q)
+    kh, kw, cin, cout = kernel_q.shape
+    pads = row_pads(plan, q, ext.shape[2], kh, stride, padding)
+    ho, wo = _rows_out(ext, kh, stride, pads)
+    if plan.need[q] is None:
+        return _empty_rows(ext, kernel_q, wo, out_dtype)
+    x = F.pad(ext, (0, 0, *pads))
+    im2col_same.calls += 1
+    y = k4.quant_matmul_plain(_patches(x, kh, stride, ho, wo),
+                              kernel_q.reshape(kh * kw * cin, cout), w_scale, bias, a_scale,
+                              act, out_dtype)
+    return y.reshape(ext.shape[0], ho, wo, cout)
+
+
+def quant_conv2d_rows_local(ext: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor,
+                            bias: torch.Tensor, a_scale, stride: int,
+                            out_dtype: torch.dtype, padding: Optional[int], plan: HaloPlan,
+                            q: int, act: Optional[str] = None,
+                            w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rank ``q``'s output rows of :func:`quant_conv2d` from ``ext``, its int8
+    input rows ``plan.need[q]`` (ops/halo.py ``extend_rows``), on K4's
+    window entry point: the rows of the read outside the image are its row
+    pad (zero), the columns the whole image's pad (ops/conv.py
+    ``row_pads``). A rank with no output rows returns none and launches
+    nothing."""
+    if ext.device.type == "cpu":
+        return quant_conv2d_rows_local_plain(ext, kernel_q, w_scale, bias, a_scale, stride,
+                                             out_dtype, padding, plan, q, act)
+    _check(ext, kernel_q)
+    kh = kernel_q.shape[0]
+    pads = row_pads(plan, q, ext.shape[2], kh, stride, padding)
+    ho, wo = _rows_out(ext, kh, stride, pads)
+    if plan.need[q] is None:
+        return _empty_rows(ext, kernel_q, wo, out_dtype)
+    if w_packed is None:
+        w_packed = pack_kernel(kernel_q)
+    return _window(ext.contiguous(), kernel_q, w_scale, bias, a_scale, stride, out_dtype, act,
+                   w_packed, ho, wo, pads[2], pads[0])

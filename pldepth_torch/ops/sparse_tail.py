@@ -16,14 +16,22 @@ zero, the head conv's SAME padding. Source indices are clamped into the
 image, so the gather never reads outside it: a pixel outside the image
 (a ranking index past the map) gets the head's value on zeros, as in the
 JAX package, not NaN.
+
+Row-sharded (spatial sharding, ops/halo.py): a rank scores the pixels it
+owns, those whose row clamped into the image lies in its full-resolution
+rows, from its half-resolution rows extended by the upsample's halo
+(:func:`sparse_taps_rows_local`; the clamp and the SAME mask apply at the
+image's border only), and the decoders sum the ranks' scores, 0 at the
+pixels a rank does not own, over the model ranks.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from pldepth_torch.ops.halo import HaloPlan
 from pldepth_torch.ops.listmle_kernel import ranking_index
 
 
@@ -47,7 +55,15 @@ def sparse_upsample2x_taps(x: torch.Tensor, pixels: torch.Tensor,
     x: (B, H2, W2, C) half-resolution map; pixels: (B, N, 2) int (row,
     col). Returns (B, N, window, window, C) in x's dtype, taps outside the
     (2 H2, 2 W2) image zero."""
-    b, h2, w2, c = x.shape
+    return _taps(x, pixels, window, x.shape[1], 0)
+
+
+def _taps(x: torch.Tensor, pixels: torch.Tensor, window: int, h2: int, base: int,
+          owned: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`sparse_upsample2x_taps` of an image of ``h2`` half-resolution
+    rows, of which ``x`` holds rows ``[base, base + x.shape[1])``; the taps
+    of a pixel not ``owned`` are zero (and read some row of ``x``)."""
+    b, n_x, w2, c = x.shape
     h, w = 2 * h2, 2 * w2
     n = pixels.shape[1]
     d = torch.arange(window, device=x.device, dtype=torch.int64) - window // 2
@@ -56,8 +72,11 @@ def sparse_upsample2x_taps(x: torch.Tensor, pixels: torch.Tensor,
     valid = (((pr >= 0) & (pr < h))[..., :, None]
              & ((pc >= 0) & (pc < w))[..., None, :])  # (B, N, win, win)
     i0r, i1r, fr = _bilinear2x_taps_1d(pr, h2)
+    if owned is not None:
+        valid = valid & owned[..., None, None]
+        i0r, i1r = (i0r - base).clamp(0, n_x - 1), (i1r - base).clamp(0, n_x - 1)
     i0c, i1c, fc = _bilinear2x_taps_1d(pc, w2)
-    xf = x.reshape(b, h2 * w2, c)
+    xf = x.reshape(b, n_x * w2, c)
 
     def take(ir, ic):
         idx = (ir[..., :, None] * w2 + ic[..., None, :]).reshape(b, -1, 1)
@@ -69,6 +88,33 @@ def sparse_upsample2x_taps(x: torch.Tensor, pixels: torch.Tensor,
     tap = ((one - fr) * ((one - fc) * take(i0r, i0c) + fc * take(i0r, i1c))
            + fr * ((one - fc) * take(i1r, i0c) + fc * take(i1r, i1c)))
     return tap * valid[..., None].to(x.dtype)
+
+
+def owned_pixels(pixels: torch.Tensor, span: Tuple[int, int], height: int) -> torch.Tensor:
+    """(B, N) bool: the pixels whose row, clamped into the image of
+    ``height`` full-resolution rows, lies in ``span``. Every pixel, one
+    outside the image too, has one owner among the ranks."""
+    r = pixels[..., 0].to(torch.int64).clamp(0, height - 1)
+    return (r >= span[0]) & (r < span[1])
+
+
+def sparse_taps_rows_local(ext: torch.Tensor, pixels: torch.Tensor, window: int,
+                           plan: HaloPlan, q: int, span: Tuple[int, int]
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank ``q``'s (taps, owned) of :func:`sparse_upsample2x_taps`: ``ext``
+    holds its half-resolution rows extended by the upsample's halo
+    (``plan``, ops/resize.py ``upsample_row_plan``; ``plan.need[q]``) and
+    ``span`` its full-resolution rows. The taps of the pixels it owns
+    (:func:`owned_pixels`) equal the whole map's, the others are zero. A
+    rank with no rows gathers from two zero rows (its graph holds the same
+    ops as every other rank's) and owns nothing."""
+    if plan.need[q] is None:
+        ext = torch.cat([ext, ext.new_zeros((ext.shape[0], 2, *ext.shape[2:]))], dim=1)
+        base = 0
+    else:
+        base = plan.need[q][0]
+    owned = owned_pixels(pixels, span, 2 * plan.height)
+    return _taps(ext, pixels, window, plan.height, base, owned), owned
 
 
 def pixels_of(rankings: torch.Tensor, width: int) -> torch.Tensor:

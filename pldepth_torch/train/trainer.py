@@ -50,8 +50,15 @@ gathered over the model ranks, and the loss (K1 on the card) reads the
 prediction map gathered over them, so every model rank computes the
 unsharded loss of its data index; each rank's backward gives its share of
 the gradient, and the world's sum of those is the single-process gradient.
-Under spatial sharding ff_redweb and the options qres, qenc, sparse_tail,
-remat_encoder and grad_accum raise (:func:`check_ported_options`).
+Both model families shard (ff_redweb's ResNet has the same five stride-2
+levels) and every training option composes with it: ``sparse_tail``'s
+ranks each score the ranked pixels they own and sum the scores over the
+model ranks (no map is gathered), ``qenc`` runs its frozen serving encoder
+on the rank's rows (int8: the halo exchanged as int8, K4 reading the rows
+in place), ``qres`` takes its int8 ``amax`` over the world, the remat
+recompute reissues the encoder's collectives, and ``grad_accum``
+accumulates the all-reduced gradient, so its state stays equal on every
+rank.
 
 The single-device training options of the JAX package: ``grad_accum``
 (train/optim.py, optax ``MultiSteps``), ``remat_encoder``
@@ -101,31 +108,6 @@ from pldepth_torch.train.optim import AmsGrad, AmsGradState, flat_grad
 from pldepth_torch.train.schedules import build_schedule
 
 log = logging.getLogger(__name__)
-
-# what the spatially sharded step does not run yet, each with its
-# ROADMAP.md queue 1 sub-item of item 11
-_NOT_PORTED_SPATIAL = (
-    ("ff_redweb", lambda cfg: "redweb" in cfg.model_name, "11.1"),
-    ("qres", lambda cfg: bool(cfg.qres), "11.2"),
-    ("qenc", lambda cfg: bool(cfg.qenc), "11.3"),
-    ("sparse_tail", lambda cfg: cfg.sparse_tail, "11.4"),
-    ("remat_encoder", lambda cfg: cfg.remat_encoder, "11.5"),
-    ("grad_accum", lambda cfg: cfg.grad_accum > 1, "11.6"),
-)
-
-
-def check_ported_options(cfg: ExperimentConfig, mesh: Mesh) -> None:
-    """Raise NotImplementedError naming the ROADMAP item of a training
-    option the port does not run yet on ``mesh``'s layout: under spatial
-    sharding (``spatial_sharding`` with a model axis > 1), ff_redweb and
-    the options qres, qenc, sparse_tail, remat_encoder and grad_accum."""
-    if not (cfg.spatial_sharding and mesh.model > 1):
-        return
-    for name, used, item in _NOT_PORTED_SPATIAL:
-        if used(cfg):
-            raise NotImplementedError(f"{name} under spatial sharding is not ported yet: "
-                                      f"ROADMAP.md queue 1 item {item}")
-
 
 @dataclasses.dataclass(frozen=True)
 class TrainState:
@@ -190,7 +172,6 @@ class Trainer:
         self.cfg = cfg
         self.steps_per_epoch = max(1, steps_per_epoch)
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh)
-        check_ported_options(cfg, self.mesh)
         self._rows: Optional[RowShard] = None
         self.device = resolve_device(
             self.mesh.device if device is None and self.mesh.active else device)
@@ -369,8 +350,8 @@ class Trainer:
         for p in params:
             p.grad = None
         pred = module(x, train, **kw)
-        if rows is not None:  # the whole map of the data index on each model rank
-            pred = rows.gather(pred)
+        if rows is not None and not cfg.sparse_tail:
+            pred = rows.gather(pred)  # the whole map of the data index on each model rank
         if cfg.sparse_tail:
             loss = pl_ranking_loss_from_scores(pred, rankings, impl=cfg.listmle_impl)
         else:
@@ -420,7 +401,10 @@ class Trainer:
     def prepare_qenc(self, state: TrainState, calib_images) -> None:
         """qenc='int8' setup: calibrate and pack the encoder's int8 serving
         graph (``prepare_quant``; the decoder stays float and trains). Must
-        run before the first step."""
+        run before the first step. Under spatial sharding every rank
+        calibrates unsharded on the whole ``calib_images`` it is given, so
+        the ranks hold the same scales (those of one process on the same
+        images)."""
         if self.cfg.qenc != "int8":
             raise ValueError("prepare_qenc applies to qenc='int8' only")
         qstate = self.prepare_quant(state, calib_images)

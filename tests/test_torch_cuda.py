@@ -869,3 +869,73 @@ def test_sharded_conv_on_the_card_equals_the_unsharded_conv(m, cuda_device):
         s, e = parts[0][q]
         close(resize.upsample2x_rows_local(ext, plan, q), up[:, s:e])
         close(fused_tail.fused_tail_rows_local(ext, w, b, plan, q), tail[:, s:e])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [2, 4])
+def test_k4_window_on_row_extended_int8_equals_its_plain_twin(m, cuda_device):
+    """ops/quant_conv.py's row-local int8 conv on the card (K4's window
+    entry point, row pad 0 after zero rows outside the image, the image's
+    column pad) against its plain twin on the same extended rows, f32 out
+    bit-equal, and against the unsharded plain conv's rows; one window
+    read a rank that owns output rows, none on a rank that owns none (B0's
+    448^2 partition over ``m`` ranks: at 4 the deepest rows split 4/4/4/2):
+    the stem (3 x 3 stride 2, 3 channels), a 3 x 3 at stride 1, ResNet's
+    1 x 1 stride 2 and its 7 x 7 stride-2 stem padded by 3."""
+    from pldepth_torch.ops import conv, halo, quant_conv
+
+    heights = halo.level_heights(448, 5)
+    parts = halo.row_partition(heights, m)
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    for lvl, k, stride, cin, padding in ((0, 3, 2, 3, None), (2, 3, 1, 24, None),
+                                         (2, 1, 2, 64, None), (0, 7, 2, 3, 3), (5, 3, 1, 40, None)):
+        cout = 16
+        q8 = torch.randint(-127, 128, (2, heights[lvl], 36, cin), dtype=torch.int8, device="cuda",
+                           generator=gen)
+        kq = torch.randint(-127, 128, (k, k, cin, cout), dtype=torch.int8, device="cuda",
+                           generator=gen)
+        ws = torch.rand(cout, device="cuda", generator=gen) * 1e-3
+        bias = torch.randn(cout, device="cuda", generator=gen)
+        whole = quant_conv.quant_conv2d_plain(q8, kq, ws, bias, 0.02, stride, torch.float32,
+                                              padding)
+        for q in range(m):
+            plan = conv.conv_row_plan(halo.RowShard(heights, parts, q, lvl), k, stride, padding)
+            ext = halo.extend_from_full(q8, plan, q).contiguous()
+            args = (kq, ws, bias, 0.02, stride, torch.float32, padding, plan, q)
+            before = quant_conv.quant_conv2d.window_launches
+            got = quant_conv.quant_conv2d_rows_local(ext, *args)
+            torch.cuda.synchronize()
+            s, e = parts[lvl + stride - 1][q]
+            assert quant_conv.quant_conv2d.window_launches - before == int(e > s)
+            assert torch.equal(got, quant_conv.quant_conv2d_rows_local_plain(ext, *args))
+            assert torch.equal(got, whole[:, s:e])
+
+
+@pytest.mark.cuda
+def test_qenc_int8_sharded_step_launches_k4_on_every_rank(cuda_device):
+    """chip_smoke.py phase 20's qenc int8 case at the smoke size: two ranks
+    share the card over gloo (child processes with torchrun's variables),
+    ff_smoke 64^2 at data 1 x model 2 (each rank owns rows at every level)
+    after ``prepare_qenc`` on the whole images: each rank launches K4 once
+    a step at every dense int8 encoder site, the stem through the window
+    read on its extended rows, and the fused K1 once each way a step; the
+    ranks' states bit-equal."""
+    import os
+    import sys
+    import tempfile
+
+    smoke = _chip_smoke()
+    with tempfile.TemporaryDirectory() as out:
+        smoke.spawn_ranks([sys.executable, smoke.__file__, "--dp_child", "20-smoke",
+                           "--dp_out", out], 2, 2, "20-smoke", timeout=300)
+        ranks = [torch.load(os.path.join(out, f"20-smoke_r{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    n = smoke.SP_STEPS
+    for rank in ranks:
+        sites, counts = rank["sites"], rank["counts"]
+        assert sites["dense"] > sites["windows"] == 1
+        assert counts["quant_matmul"] == n * sites["dense"]
+        assert counts["window_reads"] == n * sites["windows"]
+        assert (counts["ranking_loss_fwd"], counts["ranking_loss_bwd"]) == (n, n)
+        assert rank["k4_site"]["equal_plain"] and rank["k4_site"]["equal_whole"]
+    assert ranks[0]["digest"] == ranks[1]["digest"]

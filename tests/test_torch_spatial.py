@@ -34,9 +34,11 @@ mismatch would hang) and writes ``.npz`` results:
 (f) ``cli train --mesh_model 2 --spatial_sharding true`` on the streaming
     and the resident feed writes on rank 0 only, and ``--resume``
     continues; ``cli warmup`` runs the sharded step and resident step;
-(g) ff_redweb and the options under spatial sharding raise naming their
-    ROADMAP items; a model axis of 1 makes the flag a no-op; an input
-    size that does not split raises from ``shard_batch`` as in JAX.
+(g) ff_redweb and each option under spatial sharding (once refused,
+    ROADMAP items 11.1-11.6, now run: tests/test_torch_spatial_options.py)
+    build their Trainer and its rows; a model axis of 1 makes the flag a
+    no-op; an input size that does not split raises from ``shard_batch``
+    as in JAX.
 
     python tests/test_torch_spatial.py GROUP RANK WORLD RENDEZVOUS_FILE OUT_DIR
 """
@@ -713,10 +715,14 @@ def test_cli_train_spatial_writes_on_rank_0_only_and_resumes(ranks):
     ({"qenc": "bf16", "freeze_encoder": True}, "11.3"), ({"sparse_tail": True}, "11.4"),
     ({"remat_encoder": True}, "11.5"), ({"grad_accum": 2}, "11.6")])
 def test_unported_options_under_spatial_sharding_name_their_item(kw, item):
+    """Each option that ROADMAP item ``item`` once refused under spatial
+    sharding builds its Trainer there, with the rows of the nested
+    partition (the step itself: tests/test_torch_spatial_options.py)."""
     cfg = ExperimentConfig(**{**FIXED, **kw, "mesh": MeshConfig(data=1, model=2),
                               "spatial_sharding": True})
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}$"):
-        Trainer(cfg, device="cpu", mesh=mesh_lib.Mesh(world=2, data=1, model=2))
+    for q, span in enumerate([(0, 32), (32, 64)]):
+        tr = Trainer(cfg, device="cpu", mesh=mesh_lib.Mesh(world=2, rank=q, data=1, model=2))
+        assert tr.input_rows() == span, item
     # replicated (the flag off) or at model 1 they run as before
     for mesh_cfg, spatial, mesh in ((MeshConfig(data=1, model=2), False,
                                      mesh_lib.Mesh(world=2, data=1, model=2)),
