@@ -12,12 +12,14 @@ native reader; else ``BatchIterator``, optionally ``--uint8_wire``), saves
 images (``summary.json``, an example image, and with ``--parity_report
 true`` the verdict of
 docs/PARITY.md in ``parity_report.json``); ``--profile true`` traces three
-steady steps (obs/profiling.py) before ``fit``, and the wandb, TensorBoard
-and mlflow sinks follow ``--use_*`` (obs/logging.py). ``eval`` is the
+steady steps of ``fit`` with the program's spans (obs/profiling.py,
+obs/spans.py), and the wandb, TensorBoard and mlflow sinks follow
+``--use_*`` (obs/logging.py). ``eval`` is the
 test-set report, ``zeroshot`` the cross-dataset suite (Ibims, DIODE,
 Sintel, TUM, DIW).
-``predict`` and ``serve`` with their default flags serve the int8 graph of
-the ff_effnet family (dense convs on K4, ops/quant_matmul.py), calibrated
+``predict --profile_dir DIR`` traces the whole serving loop with its spans
+into DIR. ``predict`` and ``serve`` with their default flags serve the int8
+graph of the ff_effnet family (dense convs on K4, ops/quant_matmul.py), calibrated
 on the first input batch(es), and the BN-folded graph of ff_redweb;
 ``export`` writes the float forward with its weights to one artifact
 (serve/export.py) that ``serve --artifact`` runs without model code.
@@ -44,6 +46,7 @@ and rank 0 alone writes the run directory and runs the post-train report.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import glob as globmod
 import json
@@ -185,6 +188,10 @@ def _parser() -> argparse.ArgumentParser:
     _add_serving_mode_options(pr, "activation scales calibrate on the first input batch")
     pr.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    pr.add_argument("--profile_dir", default="",
+                    help="write a torch.profiler Chrome trace of the serving loop, with "
+                         "its spans (serve.queue, serve.infer, upload, serve.wait, "
+                         "serve.write_wait), into this directory")
     sv = sub.add_parser("serve", help="serving daemon: watch a directory, write depth maps")
     sv.add_argument("--model_name", default="ff_effnet")
     sv.add_argument("--load_model_path", default="", help="weights .npz (live model source)")
@@ -377,12 +384,17 @@ def predict(args: argparse.Namespace) -> dict:
             return calib
         return pad_to_batch(decode_image_chunk(chunk, args.input_size), bs)
 
-    run_pipeline(
-        chunks,
-        decode,
-        lambda imgs: predict_fn(state, imgs),
-        depth_writer(args.out_dir, args.save_png, unique_stems(files)),
-    )
+    with contextlib.ExitStack() as window:
+        if args.profile_dir:
+            from pldepth_torch.obs.profiling import profile_trace
+
+            window.enter_context(profile_trace(args.profile_dir))
+        run_pipeline(
+            chunks,
+            decode,
+            lambda imgs: predict_fn(state, imgs),
+            depth_writer(args.out_dir, args.save_png, unique_stems(files)),
+        )
     return {"n": len(files), "out_dir": args.out_dir}
 
 
@@ -606,13 +618,11 @@ def train(args: argparse.Namespace) -> dict:
         def on_train_end(self, tr, st, history):
             pass
 
-    if cfg.profile:
-        state = _profile_steps(trainer, state, train_iter, resident_store,
-                               os.path.join(logger.dir, "profile"))
     try:
-        state, history = trainer.fit(state, train_iter, val_iter_factory=vfac,
-                                     callbacks=[LogCB()], ckpt=auto_ckpt,
-                                     resident_store=resident_store)
+        state, history = trainer.fit(
+            state, train_iter, val_iter_factory=vfac, callbacks=[LogCB()], ckpt=auto_ckpt,
+            resident_store=resident_store,
+            profile_dir=os.path.join(logger.dir, "profile") if cfg.profile else None)
     finally:
         if train_iter is not None:
             train_iter.close()
@@ -637,26 +647,6 @@ def _sync(device) -> None:
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _profile_steps(trainer, state, train_iter, resident_store, logdir: str):
-    """``--profile``: one step outside the trace, then three steady steps
-    inside a torch.profiler trace written to ``logdir`` (the JAX command's
-    window; the reference disabled profiling, tracking_utils.py:39). The
-    steps draw from the run's own feed, so ``fit`` starts four batches on."""
-    from pldepth_torch.obs.profiling import profile_trace
-
-    def one_step(st):
-        if resident_store is not None:
-            return trainer.resident_step(st, resident_store.arrays)[0]
-        return trainer.train_step(st, next(train_iter))[0]
-
-    state = one_step(state)  # first-use costs stay outside the trace
-    _sync(trainer.device)
-    with profile_trace(logdir):
-        for _ in range(3):
-            state = one_step(state)
-    return state
 
 
 def active(args: argparse.Namespace) -> dict:

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 
 from pldepth_torch.core.config import MeshConfig
 from pldepth_torch.core.device import local_cuda_index
+from pldepth_torch.obs.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,12 +103,13 @@ class Mesh:
         """All-reduce ``t`` in place over ``group`` (default: the world),
         staged through the host under gloo."""
         group = self.group if group is None else group
-        if self.staged and t.device.type != "cpu":
-            host = t.cpu()
-            dist.all_reduce(host, op=op, group=group)
-            t.copy_(host)
-        else:
-            dist.all_reduce(t, op=op, group=group)
+        with span("mesh.all_reduce"):
+            if self.staged and t.device.type != "cpu":
+                host = t.cpu()
+                dist.all_reduce(host, op=op, group=group)
+                t.copy_(host)
+            else:
+                dist.all_reduce(t, op=op, group=group)
         return t
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -183,9 +185,10 @@ class Mesh:
         """True on every rank if ``flag`` is True on any rank."""
         if not self.active:
             return bool(flag)
-        t = torch.tensor([1 if flag else 0], dtype=torch.int32)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
-        return bool(t.item())
+        with span("mesh.stop"):
+            t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
+            return bool(t.item())
 
     def max_float(self, value: float) -> float:
         """The largest of every rank's ``value`` (host)."""

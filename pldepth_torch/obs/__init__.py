@@ -1,5 +1,5 @@
-"""Run logging and profiling."""
+"""Run logging, profiling and the program's spans (obs/spans.py)."""
 from pldepth_torch.obs.logging import MetricLogger
-from pldepth_torch.obs.profiling import profile_trace, step_timer
+from pldepth_torch.obs.profiling import profile_trace
 
-__all__ = ["MetricLogger", "profile_trace", "step_timer"]
+__all__ = ["MetricLogger", "profile_trace"]

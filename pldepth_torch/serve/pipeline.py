@@ -17,6 +17,8 @@ from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 
+from pldepth_torch.obs import spans
+
 __all__ = ["run_pipeline", "decode_image_chunk", "depth_writer", "unique_stems"]
 
 
@@ -35,6 +37,11 @@ def run_pipeline(
     ``infer`` runs on the caller's thread in item order; ``decode`` runs up
     to ``prefetch`` items ahead on a pool; ``write`` receives the host
     result on a writer pool. Exceptions from any stage propagate.
+
+    Spans (obs/spans.py), each with the item's index: ``serve.queue``
+    from a decode's end until ``infer`` takes its result, ``serve.infer``,
+    ``serve.wait`` for the device result, ``serve.write_wait`` while the
+    writer queue is full.
     """
     items = list(items)
     if not items:
@@ -44,30 +51,38 @@ def run_pipeline(
     ) as wr_pool:
         dec_futs: Dict[int, Any] = {}
 
+        def decoded(item: Any):
+            x = decode(item)
+            return x, spans.stamp()
+
         def read_ahead(i: int) -> None:
             for j in range(i, min(i + max(1, prefetch), len(items))):
                 if j not in dec_futs:
-                    dec_futs[j] = dec_pool.submit(decode, items[j])
+                    dec_futs[j] = dec_pool.submit(decoded, items[j])
 
         write_futs: list = []
         max_queued_writes = 2 * max(1, writers)
 
-        def flush(item: Any, out: Any) -> None:
-            host = np.asarray(out)  # wait for the device result
+        def flush(i: int, item: Any, out: Any) -> None:
+            with spans.span("serve.wait", i):
+                host = np.asarray(out)  # wait for the device result
             # bound the write queue: each queued future pins a host batch
-            while len(write_futs) >= max_queued_writes:
-                write_futs.pop(0).result()
+            with spans.span("serve.write_wait", i):
+                while len(write_futs) >= max_queued_writes:
+                    write_futs.pop(0).result()
             write_futs.append(wr_pool.submit(write, item, host))
 
-        pending = None  # (item, in-flight device result)
+        pending = None  # (index, item, in-flight device result)
         try:
             for i, item in enumerate(items):
                 read_ahead(i)
-                x = dec_futs.pop(i).result()
-                out = infer(x)  # queued; do not wait yet
+                x, decoded_at = dec_futs.pop(i).result()
+                spans.add("serve.queue", decoded_at, spans.stamp(), i)
+                with spans.span("serve.infer", i):
+                    out = infer(x)  # queued; do not wait yet
                 if pending is not None:
                     flush(*pending)  # wait for i-1 while i computes
-                pending = (item, out)
+                pending = (i, item, out)
             flush(*pending)
             pending = None
         finally:

@@ -100,6 +100,7 @@ from pldepth_torch.models.pldepth_net import (
     freeze_params,
     get_pl_depth_net,
 )
+from pldepth_torch.obs.spans import span
 from pldepth_torch.ops.halo import RowShard
 from pldepth_torch.ops.listmle import pl_ranking_loss, pl_ranking_loss_from_scores
 from pldepth_torch.ops.sparse_tail import pixels_of
@@ -337,31 +338,33 @@ class Trainer:
         module = state.model
         params = trainable_params(module)
         self._clear_serving_caches()  # the weights change in place
-        x = normalize_images(images, self.model.preprocess)
-        train = TrainPass(gen=self._gen(state, "droppath"), mesh=self.mesh)
-        kw = {}
-        if cfg.sparse_tail:  # the head at the ranked pixels, scores in rankings order
-            kw["pixels"] = pixels_of(rankings, x.shape[2])
-        if cfg.qenc:
-            kw["encoder"] = self._qenc_encoder(module)
-        rows = self._step_rows()
-        if rows is not None:
-            kw["rows"] = rows
         for p in params:
             p.grad = None
-        pred = module(x, train, **kw)
-        if rows is not None and not cfg.sparse_tail:
-            pred = rows.gather(pred)  # the whole map of the data index on each model rank
-        if cfg.sparse_tail:
-            loss = pl_ranking_loss_from_scores(pred, rankings, impl=cfg.listmle_impl)
-        else:
-            loss = pl_ranking_loss(pred, rankings, impl=cfg.listmle_impl)
+        with span("step.forward"):
+            x = normalize_images(images, self.model.preprocess)
+            train = TrainPass(gen=self._gen(state, "droppath"), mesh=self.mesh)
+            kw = {}
+            if cfg.sparse_tail:  # the head at the ranked pixels, scores in rankings order
+                kw["pixels"] = pixels_of(rankings, x.shape[2])
+            if cfg.qenc:
+                kw["encoder"] = self._qenc_encoder(module)
+            rows = self._step_rows()
+            if rows is not None:
+                kw["rows"] = rows
+            pred = module(x, train, **kw)
+            if rows is not None and not cfg.sparse_tail:
+                pred = rows.gather(pred)  # the whole map of the data index on each model rank
+            if cfg.sparse_tail:
+                loss = pl_ranking_loss_from_scores(pred, rankings, impl=cfg.listmle_impl)
+            else:
+                loss = pl_ranking_loss(pred, rankings, impl=cfg.listmle_impl)
         mesh = self.mesh
-        # each rank's share of the global mean (K1 means over its data
-        # index's lists, which the model ranks of that index all compute)
-        (loss * (1.0 / mesh.world) if mesh.active else loss).backward()
+        with span("step.backward"):
+            # each rank's share of the global mean (K1 means over its data
+            # index's lists, which the model ranks of that index all compute)
+            (loss * (1.0 / mesh.world) if mesh.active else loss).backward()
         loss = loss.detach()
-        with torch.no_grad():
+        with span("step.update"), torch.no_grad():
             grad = flat_grad(params)
             if mesh.active:
                 mesh.reduce_(grad)
@@ -414,14 +417,21 @@ class Trainer:
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
         """One step on an {"image", "gt", "mask"} batch: rankings are
         sampled on the device."""
-        images, rankings = self._rankings(state, self._to_device(batch))
-        return self._step(state, images, rankings)
+        with span("step", state.step):
+            with span("step.upload"):
+                b = self._to_device(batch)
+            with span("step.sample"):
+                images, rankings = self._rankings(state, b)
+            del b  # the uploaded gt and mask are not kept through the step
+            return self._step(state, images, rankings)
 
     def train_step_fixed(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
         """One step on an {"image", "rankings"} batch (precomputed
         rankings, the active-learning path)."""
-        b = self._to_device(batch)
-        return self._step(state, b["image"], b["rankings"])
+        with span("step", state.step):
+            with span("step.upload"):
+                b = self._to_device(batch)
+            return self._step(state, b["image"], b["rankings"])
 
     @torch.no_grad()
     def resident_batch(self, state: TrainState, arrays: Dict[str, torch.Tensor],
@@ -438,18 +448,19 @@ class Trainer:
         model ranks of one data index draw the same samples (under spatial
         sharding each holds its rows of them)."""
         image = arrays["image"]
-        if idx is None:
-            data, index = self.mesh.data, self.mesh.data_index
-            if self.cfg.batch_size % data:
-                raise ValueError(
-                    f"batch_size {self.cfg.batch_size} not divisible by data axis {data}")
-            tag = "train/resident" + (f"/{index}" if index else "")
-            gen = generator(state.seed, tag, state.step, image.device)
-            idx = torch.randint(0, image.shape[0], (self.cfg.batch_size // data,),
-                                generator=gen, device=image.device)
-        return {"image": image.index_select(0, idx),
-                "gt": decode_gt(arrays["gt"].index_select(0, idx), arrays["gt_scale"]),
-                "mask": arrays["mask"].index_select(0, idx)}
+        with span("step.draw", state.step):
+            if idx is None:
+                data, index = self.mesh.data, self.mesh.data_index
+                if self.cfg.batch_size % data:
+                    raise ValueError(
+                        f"batch_size {self.cfg.batch_size} not divisible by data axis {data}")
+                tag = "train/resident" + (f"/{index}" if index else "")
+                gen = generator(state.seed, tag, state.step, image.device)
+                idx = torch.randint(0, image.shape[0], (self.cfg.batch_size // data,),
+                                    generator=gen, device=image.device)
+            return {"image": image.index_select(0, idx),
+                    "gt": decode_gt(arrays["gt"].index_select(0, idx), arrays["gt_scale"]),
+                    "mask": arrays["mask"].index_select(0, idx)}
 
     def resident_step(self, state: TrainState, arrays: Dict[str, torch.Tensor],
                       idx: Optional[torch.Tensor] = None) -> Tuple[TrainState, StepMetrics]:
@@ -498,8 +509,10 @@ class Trainer:
         return loss
 
     def _images(self, images) -> torch.Tensor:
-        x = torch.as_tensor(images, dtype=torch.float32)
-        return normalize_images(x.to(self.device), self.model.preprocess)
+        # every predict's upload; a served chunk's lies under serve.infer
+        with span("upload"):
+            x = torch.as_tensor(images, dtype=torch.float32)
+            return normalize_images(x.to(self.device), self.model.preprocess)
 
     @torch.inference_mode()
     def predict(self, state: TrainState, images) -> torch.Tensor:
@@ -709,7 +722,8 @@ class Trainer:
     def fit(self, state: TrainState, train_iter: Optional[Iterator[Dict[str, np.ndarray]]],
             epochs: Optional[int] = None,
             val_iter_factory: Optional[Callable[[], Iterator[Dict[str, np.ndarray]]]] = None,
-            callbacks=(), ckpt=None, resident_store=None) -> Tuple[TrainState, Dict[str, list]]:
+            callbacks=(), ckpt=None, resident_store=None,
+            profile_dir: Optional[str] = None) -> Tuple[TrainState, Dict[str, list]]:
         """Run the train loop (``pldepth_tpu`` ``Trainer.fit``).
 
         ``ckpt``: optional CheckpointManager for full-state saves labelled by
@@ -734,7 +748,14 @@ class Trainer:
         ones, so every rank makes the same NaN and epoch decisions; a stop
         asked on any rank (SIGTERM, ``request_stop``) stops every rank at
         the same step; ``ckpt`` writes on rank 0 only (train/checkpoint.py)
-        and ``ips`` counts the global batch."""
+        and ``ips`` counts the global batch.
+
+        ``profile_dir``: trace the loop from the end of its first step (or
+        chain) until three more steps have run, with obs/profiling.py's
+        ``profile_trace`` into ``profile_dir``: the steps' ops and kernels
+        under the program's spans (the step's phases, ``fit.feed``,
+        ``fit.wait``, ``mesh.stop``, ``fit.epoch`` where an epoch ends
+        inside)."""
         epochs = epochs if epochs is not None else self.cfg.epochs
         history: Dict[str, list] = {"loss": [], "val_loss": [], "lr": [], "ips": []}
         start_step = state.step
@@ -750,8 +771,11 @@ class Trainer:
         preempted = False
         for cb in callbacks:
             cb.on_train_begin(self)
-        with self._preemption_guard():
-            next_batch = None if resident else next(train_iter)
+        n_run, traced_from = 0, None  # steps run in this call; the profiled window's start
+        with self._preemption_guard(), contextlib.ExitStack() as window:
+            if not resident:
+                with span("fit.feed", state.step):
+                    next_batch = next(train_iter)
             for epoch in range(start_epoch, epochs):
                 t0 = time.time()
                 metrics_all: List[StepMetrics] = []
@@ -764,10 +788,13 @@ class Trainer:
                         k = 1
                         state, metrics = self.train_step(state, next_batch)
                         # overlap the next host fetch with the step on the card
-                        next_batch = next(train_iter)
+                        with span("fit.feed", state.step):
+                            next_batch = next(train_iter)
                     metrics_all.append(metrics)
                     if len(metrics_all) >= 2 and metrics_all[-2].done is not None:
-                        metrics_all[-2].done.synchronize()
+                        # the last step of the chain before the one just queued
+                        with span("fit.wait", state.step - k - 1):
+                            metrics_all[-2].done.synchronize()
                     for j in range(k):
                         if self.cfg.log_every and (step_i + j + 1) % self.cfg.log_every == 0:
                             for cb in callbacks:
@@ -781,15 +808,27 @@ class Trainer:
                     if self.mesh.any(self._stop_requested):
                         preempted = True
                         break
-                losses = ([float(x) for x in torch.cat([m.loss.reshape(-1)
-                                                        for m in metrics_all]).cpu()]
-                          if metrics_all else [])
+                    n_run += k
+                    if profile_dir and traced_from is None:  # first-use costs stay outside
+                        from pldepth_torch.obs.profiling import profile_trace
+
+                        traced_from = n_run
+                        window.enter_context(profile_trace(profile_dir))
+                    elif profile_dir and n_run - traced_from >= 3:
+                        window.close()
+                        profile_dir = None
+                with span("fit.epoch", state.step):
+                    losses = ([float(x) for x in torch.cat([m.loss.reshape(-1)
+                                                            for m in metrics_all]).cpu()]
+                              if metrics_all else [])
+                    # finite covers grads too: a NaN backward with a finite
+                    # loss must still stop the run (the guard kept the old
+                    # params)
+                    finite = bool(np.all(np.isfinite(losses))) and all(
+                        bool(f) for f in torch.cat([m.finite.reshape(-1)
+                                                    for m in metrics_all]).cpu()
+                    ) if metrics_all else True
                 n_steps = len(losses)
-                # finite covers grads too: a NaN backward with a finite loss
-                # must still stop the run (the guard kept the old params)
-                finite = bool(np.all(np.isfinite(losses))) and all(
-                    bool(f) for f in torch.cat([m.finite.reshape(-1) for m in metrics_all]).cpu()
-                ) if metrics_all else True
                 dt = time.time() - t0
                 history["loss"].append(float(np.mean(losses)) if losses else float("nan"))
                 history["lr"].append(float(metrics_all[-1].lr.reshape(-1)[-1])

@@ -86,3 +86,27 @@ def test_cli_default_mode_names_its_roadmap_item(served):
         assert d.shape == (SIZE, SIZE) and np.isfinite(d).all()
         rel = np.abs(d - want[i]).max() / np.abs(want[i]).max()
         assert rel < 0.15 and np.corrcoef(d.ravel(), want[i].ravel())[0, 1] > 0.98, (i, rel)
+
+
+def test_cli_predict_profile_dir_traces_the_serving_spans(served):
+    """--profile_dir: a Chrome trace of the serving loop with each chunk's
+    spans, the upload under its serve.infer, the queue's wait on a track of
+    its own."""
+    root, imgs, weights, files, want = served
+    out, prof = root / "o3", root / "prof"
+    r = _run("--model_name", "ff_smoke", "--load_model_path", weights,
+             "--inputs", str(imgs), "--out_dir", str(out), "--input_size", str(SIZE),
+             "--batch_size", "2", "--device", "cpu", "--profile_dir", str(prof))
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == {"n": 3, "out_dir": str(out)}
+    (trace,) = prof.glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    for chunk in (0, 1):
+        mine = {e["name"]: e for e in spans if e["args"]["ident"] == chunk}
+        assert set(mine) == {"serve.queue", "serve.infer", "upload", "serve.wait",
+                             "serve.write_wait"}, (chunk, sorted(mine))
+        assert mine["upload"]["args"]["parent"] == mine["serve.infer"]["args"]["id"]
+        assert mine["serve.queue"]["tid"] == 0
+        assert mine["serve.infer"]["tid"] == mine["serve.wait"]["tid"] != 0
+    assert any(e.get("cat") == "cpu_op" and e["name"] == "aten::convolution" for e in events)

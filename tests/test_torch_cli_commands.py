@@ -26,7 +26,9 @@ torch.set_num_threads(1)
 JAX_COMMANDS = sorted(jcli.commands)
 # options the port adds, by command: where the model runs ("cuda" unless
 # the CPU is asked for); analyze and convert run on the host only
+# predict adds a profiled serving loop
 PORT_ADDITIONS = {c: {"device"} for c in JAX_COMMANDS if c not in ("analyze", "convert")}
+PORT_ADDITIONS["predict"] = {"device", "profile_dir"}
 # (command, option) -> (port default, JAX default): the artifact's platform
 # list names the port's devices
 DIFFERENCES = {("export", "platforms"): ("cuda,cpu", "tpu,cpu")}
@@ -138,19 +140,31 @@ def test_cli_warmup_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_cli_train_profile_on_the_cpu(tmp_path):
-    """--profile true: a Chrome trace of the three steady steps under
-    <run>/profile, drawn from the run's own feed (fit ends at the same
-    step), TensorBoard scalars under <run>/tb, weights saved."""
-    out = _run("train", "--device", "cpu", *SMOKE, "--dataset", "synthetic", "--ds_size", "48",
-               "--batch_size", "4", "--epochs", "1", "--ranking_size", "3",
+    """--profile true: a Chrome trace of three steady steps of ``fit``
+    under <run>/profile, with the program's spans (the steps' phases, the
+    feed, the epoch's readback where an epoch ends inside), TensorBoard
+    scalars under <run>/tb, weights saved."""
+    out = _run("train", "--device", "cpu", *SMOKE, "--dataset", "synthetic", "--ds_size", "24",
+               "--batch_size", "8", "--epochs", "2", "--ranking_size", "3",
                "--rankings_per_image", "10", "--output_dir", str(tmp_path), "--run_name", "p",
                "--profile", "true", "--use_tensorboard", "true")
     run = tmp_path / "p"
-    assert out["step"] == (48 - 48 // 15) // 4 and os.path.exists(out["weights"])
+    assert out["step"] == 2 * ((24 - 24 // 15) // 8) and os.path.exists(out["weights"])
     (trace,) = glob.glob(str(run / "profile" / "*.pt.trace.json"))
     with open(trace) as f:
-        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events]
     assert names.count("aten::sort") >= 3  # the rankings' label sort, each step
+    # the program's spans of steps 1-3 (the first step is outside); on the
+    # CPU no step has an event for fit to wait on, and one process has no
+    # stop agreement
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["args"]["ident"] for e in spans if e["name"] == "step"] == [1, 2, 3]
+    assert {e["name"] for e in spans} == {"step", "step.upload", "step.sample", "step.forward",
+                                          "step.backward", "step.update", "fit.feed",
+                                          "fit.epoch"}
+    assert [e["args"]["ident"] for e in spans if e["name"] == "fit.feed"] == [2, 3, 4]
+    assert [e["args"]["ident"] for e in spans if e["name"] == "fit.epoch"] == [2]
     assert glob.glob(str(run / "tb" / "events.*"))
     epochs = [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in epochs if "loss" in r] == [0]
+    assert [r["step"] for r in epochs if "loss" in r] == [0, 1]

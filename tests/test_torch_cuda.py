@@ -797,6 +797,49 @@ def test_profile_trace_of_a_card_step_holds_the_fused_k1(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
+def test_a_span_holds_its_launch_and_kernel_on_the_card_trace(cuda_device, tmp_path):
+    """obs/spans.py stamps on the card trace's clock: a span around one
+    launch of ``torch.cuda._sleep`` and a sync holds that launch and its
+    kernel, matched by the trace's correlation id. (The launch's ``tid``
+    is CUPTI's thread id, not the native id the span and the host ops
+    carry, so a launch is matched to spans by time.)"""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pldepth_torch.obs import spans
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):  # the first launches of a window can go unrecorded
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        with spans.recording() as rec:
+            with spans.span("sleep"):
+                torch.cuda._sleep(100_000)
+                torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    (s,) = rec.spans
+
+    def inside(e):
+        t0 = base + round(e["ts"] * 1e3)
+        return s.start_ns <= t0 and t0 + round(e.get("dur", 0) * 1e3) <= s.end_ns
+
+    kernels = [e for e in events if e.get("cat") == "kernel" and inside(e)]
+    assert len(kernels) == 1, [e["name"] for e in kernels]
+    corr = kernels[0]["args"]["correlation"]
+    launch = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and (e.get("args") or {}).get("correlation") == corr]
+    assert len(launch) == 1 and inside(launch[0]), launch
+
+
+@pytest.mark.cuda
 def test_two_ranks_on_the_card_match_the_single_process_step(cuda_device):
     """chip_smoke.py phase 18b at the smoke size: two ranks share the card
     over gloo (each a child process with torchrun's variables), 4 rows a
@@ -939,3 +982,50 @@ def test_qenc_int8_sharded_step_launches_k4_on_every_rank(cuda_device):
         assert (counts["ranking_loss_fwd"], counts["ranking_loss_bwd"]) == (n, n)
         assert rank["k4_site"]["equal_plain"] and rank["k4_site"]["equal_whole"]
     assert ranks[0]["digest"] == ranks[1]["digest"]
+
+
+@pytest.mark.cuda
+def test_fit_profile_on_the_card_holds_its_waits_and_kernels(cuda_device, tmp_path):
+    """``fit(profile_dir=)`` on the card: steps 1-3 in the trace, each
+    with a ``fit.wait`` on the step before, and the kernels of each step
+    launched inside one of its phases (by correlation id)."""
+    import json
+
+    from pldepth_torch.core.config import ExperimentConfig
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.data.pipeline import BatchIterator
+    from pldepth_torch.train import Trainer
+
+    cfg = ExperimentConfig(model_name="ff_smoke", input_size=64, batch_size=2,
+                           ranking_size=5, rankings_per_image=20, freeze_encoder=True)
+    trainer = Trainer(cfg, steps_per_epoch=5)
+    it = BatchIterator(SyntheticDepthDataset(16, 64, 0), 2, seed=0)
+    state, _ = trainer.fit(trainer.init_state(), it, epochs=1, profile_dir=str(tmp_path))
+    it.close()
+    assert state.step == 5
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    trace = json.loads(path.read_text())
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["args"]["ident"] for e in spans if e["name"] == "step"] == [1, 2, 3]
+    # the wait after queueing step s is on step s - 1
+    assert [e["args"]["ident"] for e in spans if e["name"] == "fit.wait"] == [0, 1, 2]
+    phases = [e for e in spans if e["name"] in ("step.upload", "step.sample", "step.forward",
+                                                "step.backward", "step.update")]
+    launches = {(e.get("args") or {}).get("correlation"): e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    steps = [e for e in spans if e["name"] == "step"]
+
+    def launch(k):
+        return launches.get(k["args"].get("correlation"))
+
+    # the kernels the three steps launched, on any thread
+    kernels = [k for k in events if k.get("cat") == "kernel" and launch(k) is not None
+               and steps[0]["ts"] <= launch(k)["ts"] <= steps[-1]["ts"] + steps[-1]["dur"]]
+    assert kernels
+
+    def launched_in(k):
+        return any(p["ts"] <= launch(k)["ts"] <= p["ts"] + p["dur"] for p in phases)
+
+    # autograd's thread launches the backward's kernels inside step.backward
+    assert sum(map(launched_in, kernels)) >= 0.9 * len(kernels)

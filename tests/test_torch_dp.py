@@ -39,12 +39,18 @@ single-process step:
     ``--pack_cache`` raises naming ROADMAP item 11; ``cli warmup`` counts
     both ranks in its collectives;
 (i) ``eval_step`` (global mean) and ``jit_predict`` (each rank its rows) at
-    world 2 against single-process results.
+    world 2 against single-process results;
+(j) the spans of ``fit``'s profiled window at world 2 (obs/spans.py in
+    each rank's Chrome trace): one ``mesh.stop`` a step, every
+    ``mesh.all_reduce`` inside the step's forward, backward or update under
+    that step's identifier, in the same order on both ranks.
 
     python tests/test_torch_dp.py RANK WORLD RENDEZVOUS_FILE OUT_DIR
 """
 
 import builtins
+import glob
+import json
 import io
 import os
 import subprocess
@@ -313,9 +319,27 @@ def case_cli(mesh, rank, out):
     return res
 
 
+def case_spans(mesh, rank, out):
+    tr = Trainer(ExperimentConfig(**FIXED), steps_per_epoch=2, device="cpu")
+    it = BatchIterator(SyntheticDepthDataset(n=16, image_size=S, seed=6), 2, seed=0,
+                       shard_index=rank, num_shards=WORLD)
+    logdir = os.path.join(out, f"profile{rank}")
+    state, _ = tr.fit(tr.init_state(), it, epochs=2, profile_dir=logdir)
+    it.close()
+    (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    with open(path) as f:
+        got = sorted((e for e in json.load(f)["traceEvents"] if e.get("cat") == "program_span"),
+                     key=lambda e: (e["ts"], e["args"]["id"]))
+    by_id = {e["args"]["id"]: e["name"] for e in got}
+    return {"step": state.step, "names": np.asarray([e["name"] for e in got]),
+            "parents": np.asarray([by_id.get(e["args"]["parent"], "") for e in got]),
+            "idents": np.asarray([-1 if e["args"]["ident"] is None else e["args"]["ident"]
+                                  for e in got])}
+
+
 CASES = [("fixed", case_fixed), ("sampled", case_sampled), ("resident", case_resident),
          ("options", case_options), ("stop", case_stop), ("eval", case_eval), ("mesh", case_mesh),
-         ("cli", case_cli)]
+         ("spans", case_spans), ("cli", case_cli)]
 
 
 def child(rank: int, world: int, rendezvous: str, out: str) -> None:
@@ -612,6 +636,28 @@ def test_a_stop_on_one_rank_stops_both_at_the_same_step(ranks):
         assert int(res[r]["step"]) == 2 and bool(res[r]["preempted"])
         assert list(res[r]["ckpt_steps"]) == [2]  # rank 0 wrote it, both see it
     assert_ranks_equal(res, [k for k in res[0] if k.startswith("stop/")])
+
+
+# (j) -----------------------------------------------------------------------
+def test_fit_spans_hold_the_stop_agreement_and_the_all_reduces(ranks):
+    """``fit(profile_dir=)`` at world 2: steps 1-3 in each rank's trace."""
+    res = ranks("spans")
+    for r in range(WORLD):
+        names, parents, idents = (list(res[r][k]) for k in ("names", "parents", "idents"))
+        assert int(res[r]["step"]) == 4
+        stops = [i for i, n in enumerate(names) if n == "mesh.stop"]
+        assert len(stops) == 3 and all(parents[i] == "" for i in stops)
+        reduces = [i for i, n in enumerate(names) if n == "mesh.all_reduce"]
+        # global-batch BN's sums in the forward and their cotangents in the
+        # backward; the gradient and the loss in the update
+        assert {parents[i] for i in reduces} == {"step.forward", "step.backward",
+                                                 "step.update"}
+        assert sorted({int(idents[i]) for i in reduces}) == [1, 2, 3]
+        steps = [i for i, n in enumerate(names) if n == "step"]
+        assert [int(idents[i]) for i in steps] == [1, 2, 3]
+        assert "fit.epoch" in names and "fit.feed" in names
+    assert [n for n in res[0]["names"] if n.startswith("mesh.")] == \
+        [n for n in res[1]["names"] if n.startswith("mesh.")]
 
 
 # the draws -------------------------------------------------------------------

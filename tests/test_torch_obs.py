@@ -4,8 +4,8 @@ byte-equal local files (the clock pinned, so ``_time`` agrees too), the same
 TensorBoard scalars and images read back from the event files, and the same
 calls into stub ``wandb`` and ``mlflow`` modules; a sink whose package is
 missing leaves the logger local-only with a warning in both packages;
-``profile_trace`` writes a Chrome trace that holds a step's ops and
-``step_timer`` reports under the JAX key."""
+``profile_trace`` writes a Chrome trace that holds a step's ops and the
+program's spans above them."""
 
 import glob
 import inspect
@@ -22,7 +22,6 @@ import torch
 from pldepth_torch.obs import logging as plog
 from pldepth_torch.obs import profiling as pprof
 from pldepth_tpu.obs import logging as jlog
-from pldepth_tpu.obs import profiling as jprof
 
 torch.set_num_threads(1)
 
@@ -217,16 +216,23 @@ def test_profile_trace_holds_a_steps_ops(tmp_path):
         tr.train_step(state, batch)
     (path,) = glob.glob(str(tmp_path / "profile" / "*.pt.trace.json"))
     with open(path) as f:
-        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
     assert {"aten::convolution", "aten::sort"} <= names
     assert any("backward" in str(n).lower() for n in names)
+    # the program's spans, on the trace's clock and threads, above the ops
+    # they ran
+    spans = {e["name"]: e for e in events if e.get("cat") == "program_span"}
+    assert set(spans) == {"step", "step.upload", "step.sample", "step.forward",
+                          "step.backward", "step.update"}
+    assert {e["args"]["ident"] for e in spans.values()} == {state.step}
 
+    def inside(e, s):
+        return (e.get("tid") == s["tid"] and s["ts"] <= e["ts"]
+                and e["ts"] + e.get("dur", 0) <= s["ts"] + s["dur"])
 
-def test_step_timer_reports_under_the_jax_key():
-    got, want = [], []
-    with pprof.step_timer(got.append, "train"):
-        torch.ones(4).sum()
-    with jprof.step_timer(want.append, "train"):
-        pass
-    assert [list(d) for d in got] == [list(d) for d in want] == [["train_time_s"]]
-    assert got[0]["train_time_s"] >= 0
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    convs = [e for e in ops if e["name"] == "aten::convolution"]
+    assert convs and all(inside(e, spans["step.forward"]) for e in convs)
+    assert any(inside(e, spans["step.sample"]) for e in ops if e["name"] == "aten::sort")
+    assert any(inside(e, spans["step.backward"]) for e in ops if "backward" in e["name"].lower())
