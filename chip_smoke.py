@@ -3114,6 +3114,8 @@ def option_run(name: str, cfg, batches, smi: str, watch=None) -> dict:
             watch(i, trainer, state)
     torch.cuda.synchronize()
     rec["counts"] = k_counts()
+    # step 0 runs eagerly (the step graph's warm-up) and the capture
+    # allocates as a step does: a step's working memory, graphed or not
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(OPT_STEPS)]
     rec["step_ms_all"], rec["step_ms"] = step_ms, float(np.median(step_ms[2:]))
@@ -4210,6 +4212,9 @@ def dp_steps(trainer, batches, digest: bool = False, prepare=None, patch=None) -
         return call
 
     trainer.optimizer.step = spy
+    # the spy reads each step's gradient on the host, which a step captured
+    # in a CUDA graph cannot: the reference steps run eagerly
+    trainer._graphed = lambda: False
     stack = contextlib.ExitStack()
     mesh_lib.Mesh._all_reduce = timed(real_all_reduce)
     mesh_lib.Mesh.model_gather = timed(real_gather)

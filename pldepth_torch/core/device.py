@@ -8,9 +8,10 @@ the CPU must not pass for one taken on the GPU.
 from __future__ import annotations
 
 import os
-from typing import Union
+from typing import Dict, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -33,6 +34,31 @@ def wide(x: torch.Tensor) -> torch.Tensor:
     float64, so two ways of computing one step can be held to each other
     far below float32's rounding."""
     return x if x.dtype == torch.float64 else x.to(torch.float32)
+
+
+class Constants:
+    """Fixed values as a tensor on a device, made once per (device, dtype)
+    and kept: a step that reads them makes no host-to-device copy, which
+    would wait for the stream and cannot be captured in a CUDA graph. They
+    are made outside inference mode, so a step with autograd may save them
+    after a prediction made them. A tensor that ``torch.export`` traces (a
+    fake tensor) gets a fresh one, made as before and not kept."""
+
+    def __init__(self, values):
+        self.values = values
+        self._made: Dict[Tuple[torch.device, torch.dtype], torch.Tensor] = {}
+
+    def like(self, t: torch.Tensor) -> torch.Tensor:
+        """The values in ``t``'s dtype on ``t``'s device."""
+        if is_fake(t):
+            return torch.as_tensor(self.values, dtype=t.dtype, device=t.device)
+        key = (t.device, t.dtype)
+        made = self._made.get(key)
+        if made is None:
+            with torch.inference_mode(False):
+                made = torch.as_tensor(self.values, dtype=t.dtype, device=t.device)
+            self._made[key] = made
+        return made
 
 
 def local_cuda_index() -> int:

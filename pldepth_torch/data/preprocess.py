@@ -7,23 +7,26 @@ from __future__ import annotations
 
 import torch
 
+from pldepth_torch.core.device import Constants
 from pldepth_torch.core.mesh import batch_rand
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 CAFFE_MEAN_BGR = (103.939, 116.779, 123.68)
+_ON_DEVICE = {name: Constants(v) for name, v in (
+    ("mean", IMAGENET_MEAN), ("std", IMAGENET_STD), ("caffe", CAFFE_MEAN_BGR))}
 
 
 def normalize_images(images: torch.Tensor, mode: str) -> torch.Tensor:
     """Normalize a [0,1]-ranged NHWC image batch for the given backbone."""
     images = images.to(torch.float32)
     if mode == "effnet":
-        mean = images.new_tensor(IMAGENET_MEAN)
-        std = images.new_tensor(IMAGENET_STD)
+        mean = _ON_DEVICE["mean"].like(images)
+        std = _ON_DEVICE["std"].like(images)
         return (images - mean) / std
     if mode == "caffe":
         bgr = images.flip(-1) * 255.0
-        return bgr - images.new_tensor(CAFFE_MEAN_BGR)
+        return bgr - _ON_DEVICE["caffe"].like(images)
     if mode == "none":
         return images
     raise ValueError(f"unknown normalization mode {mode!r}")

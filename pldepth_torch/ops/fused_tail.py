@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pldepth_torch.core.device import wide
+from pldepth_torch.core.device import Constants, wide
 from pldepth_torch.ops.halo import HaloPlan, RowShard, extend_rows
 from pldepth_torch.ops.resize import upsample2x_bilinear, upsample_row_plan
 
@@ -38,6 +38,7 @@ _A = np.array(
     ],
     dtype=np.float32,
 )
+_A_ON = Constants(_A)
 
 
 def compose_upsample_conv_kernel(w: torch.Tensor) -> torch.Tensor:
@@ -49,7 +50,7 @@ def compose_upsample_conv_kernel(w: torch.Tensor) -> torch.Tensor:
     depth-to-space reshape recovers NHWC order.
     """
     w32 = wide(w).permute(2, 3, 1, 0)  # HWIO (3, 3, C, F)
-    a = torch.as_tensor(_A, device=w.device, dtype=w32.dtype)
+    a = _A_ON.like(w32)
     # K[di,dj,t,u,c,f] = sum_{a,b} w[a,b,c,f] A[di][a,t] A[dj][b,u]
     k = torch.einsum("abcf,dat,ebu->detucf", w32, a, a)
     c, f = w32.shape[2], w32.shape[3]

@@ -129,6 +129,7 @@ def ranking_loss_bwd_plain(pred: torch.Tensor, lse: torch.Tensor, sidx: torch.Te
 
 _fns = {}
 _workspaces = {}  # device index -> (ticket counter, per-block partial sums)
+_outgrown = []  # partial sums a larger workspace replaced: a CUDA graph may still write them
 
 
 def _launch(symbol: str, device: torch.device, *args) -> None:
@@ -150,11 +151,14 @@ def _launch(symbol: str, device: torch.device, *args) -> None:
 
 def _workspace(device: torch.device, n: int):
     """The ticket counter (zero between launches) and room for one partial
-    sum a block (at most one block a list), kept per device."""
+    sum a block (at most one block a list), kept per device and never
+    freed (a captured train step launches K1 on them)."""
     key = device.index if device.index is not None else torch.cuda.current_device()
     ws = _workspaces.get(key)
     if ws is None or ws[1].numel() < n:
         ticket = ws[0] if ws else torch.zeros(1, dtype=torch.int32, device=device)
+        if ws:
+            _outgrown.append(ws[1])
         ws = _workspaces[key] = (ticket, torch.empty(max(n, 4096), device=device))
     return ws
 

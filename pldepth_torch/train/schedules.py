@@ -4,7 +4,9 @@
 Each takes an int or an integer tensor (the optimizer's update count, which
 lives on the device) and returns a float32 tensor on the step's device, so
 the train step reads its LR without a host round trip. The arithmetic is the
-JAX package's, in float32.
+JAX package's, in float32. Its constants are float32 tensors made once per
+device (core/device.py ``Constants``): a call makes no host-to-device copy,
+so the train step can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Sequence
 import torch
 
 from pldepth_torch.core.config import ExperimentConfig
+from pldepth_torch.core.device import Constants
 
 
 def _f32(step) -> torch.Tensor:
@@ -29,23 +32,27 @@ def sgdr_schedule(max_lr: float, min_lr: float, steps_per_cycle: int,
             f"sgdr mult_factor must be >= 1 (shrinking cycles terminate "
             f"after steps_per_cycle/(1-m) steps); got {mult_factor}")
 
+    consts = {k: Constants(v) for k, v in (("l0", steps_per_cycle), ("m", mult_factor),
+                                           ("max", max_lr), ("decay", lr_decay),
+                                           ("min", min_lr))}
+
     def schedule(step) -> torch.Tensor:
         t = _f32(step)
-        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=t.device)  # noqa: E731
-        l0 = f32(steps_per_cycle)
+        f32 = lambda k: consts[k].like(t)  # noqa: E731
+        l0 = f32("l0")
         if mult_factor == 1.0:
             cycle = torch.floor(t / l0)
             frac = (t - cycle * l0) / l0
         else:
-            m = f32(mult_factor)
+            m = f32("m")
             # cycle c starts at l0*(m^c - 1)/(m - 1)
             cycle = torch.floor(torch.log1p(t * (m - 1.0) / l0) / torch.log(m))
             start = l0 * (torch.pow(m, cycle) - 1.0) / (m - 1.0)
             length = l0 * torch.pow(m, cycle)
             frac = (t - start) / length
         frac = torch.clamp(frac, 0.0, 1.0)
-        peak = f32(max_lr) * torch.pow(f32(lr_decay), cycle)
-        return f32(min_lr) + 0.5 * (peak - f32(min_lr)) * (1.0 + torch.cos(frac * math.pi))
+        peak = f32("max") * torch.pow(f32("decay"), cycle)
+        return f32("min") + 0.5 * (peak - f32("min")) * (1.0 + torch.cos(frac * math.pi))
 
     return schedule
 
@@ -54,14 +61,12 @@ def step_decay_schedule(init_lr: float, steps_per_epoch: int,
                         milestones: Sequence[int] = (80, 120, 160, 180),
                         multiplier: float = 0.1, warmup_epochs: int = 0):
     """Epoch-milestone decay with linear warmup, expressed per step."""
-    ms = sorted(milestones)
+    msv, init, mult = Constants(sorted(milestones)), Constants(init_lr), Constants(multiplier)
 
     def schedule(step) -> torch.Tensor:
         epoch = _f32(step) / float(steps_per_epoch)
-        msv = torch.tensor(ms, dtype=torch.float32, device=epoch.device)
-        n_hit = (epoch >= msv).sum().to(torch.float32)
-        lr = torch.tensor(init_lr, dtype=torch.float32, device=epoch.device) * torch.pow(
-            torch.tensor(multiplier, dtype=torch.float32, device=epoch.device), n_hit)
+        n_hit = (epoch >= msv.like(epoch)).sum().to(torch.float32)
+        lr = init.like(epoch) * torch.pow(mult.like(epoch), n_hit)
         if warmup_epochs > 0:
             warm = (torch.floor(epoch) + 1.0) * init_lr / float(warmup_epochs)
             lr = torch.where(epoch < warmup_epochs, warm, lr)
@@ -71,7 +76,8 @@ def step_decay_schedule(init_lr: float, steps_per_epoch: int,
 
 
 def constant_schedule(lr: float):
-    return lambda step: torch.tensor(lr, dtype=torch.float32, device=_f32(step).device)
+    value = Constants(lr)
+    return lambda step: value.like(_f32(step))
 
 
 def build_schedule(cfg: ExperimentConfig, steps_per_epoch: int):

@@ -15,6 +15,26 @@ advances. The guard's flag stays on the device: every commit is a
 runs the same step on a batch drawn and decoded on the device from a
 resident store (data/resident.py): no batch data crosses the host link.
 
+On one card (no process group) the step's device work, from the device
+batch to the end of the update, is one CUDA graph, captured once and
+replayed at every step (``train_step``): the host then queues a step
+with one launch instead of thousands, and the card sets the pace. The
+first step for a state and batch shape runs eagerly on a side stream, as
+the graph's warm-up, and the graph is captured after it; later steps
+copy their batch into the graph's input buffers, re-seed the step's
+generators and replay. A replay adds the captured step's launches to the
+kernel wrappers' counters (``ranking_loss_fwd.launches``, ...), which
+thus count every step's launches, eager or replayed, and not the
+capture's, which launches nothing. The graph is kept on the
+Trainer across ``fit`` calls and captured again when the module, a
+storage of its parameters, buffers or optimizer state, or the batch's
+shapes and dtypes change. ``remat_encoder`` stays eager (its recompute
+sets generator states on the host), as do the CPU, a process group and
+``train_step_fixed``. A replay runs the eager step's kernels on the same
+inputs and draws: its loss, finite flag and BN statistics are the eager
+step's bit for bit; the backward's atomic adds (the bilinear upsample's,
+K1's) sum in an order of their own, as they do between two eager steps.
+
 The JAX state is an immutable pytree; here the weights live in an
 ``nn.Module`` that the state holds, and the train step updates that module
 and its optimizer state in place (no copy of the weights per step) and
@@ -79,6 +99,7 @@ import logging
 import signal
 import threading
 import time
+import weakref
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -90,7 +111,7 @@ from pldepth_torch.core.config import ExperimentConfig, sampler_name_for_type
 from pldepth_torch.core.device import DeviceLike, resolve_device
 from pldepth_torch.core.mesh import Mesh, RowsGenerator, make_mesh
 from pldepth_torch.core.mesh import pad_to_batch  # noqa: F401  (importable here, as before)
-from pldepth_torch.core.rng import generator
+from pldepth_torch.core.rng import derive_seed, generator
 from pldepth_torch.data.preprocess import normalize_images, random_flip_batch
 from pldepth_torch.data.resident import decode_gt
 from pldepth_torch.models.efficientnet import SPATIAL_LEVELS
@@ -109,6 +130,25 @@ from pldepth_torch.train.optim import AmsGrad, AmsGradState, flat_grad
 from pldepth_torch.train.schedules import build_schedule
 
 log = logging.getLogger(__name__)
+
+# the train step's random draws, one generator each, keyed by (seed, step)
+STEP_DRAWS = ("flip", "sample", "droppath")
+
+
+def _launch_counters() -> Tuple[Tuple[object, str], ...]:
+    """The kernel wrappers' counters (``<wrapper>.<name>``) that a train
+    step can move."""
+    from pldepth_torch.ops import (banded_mbconv, fused_mbconv, listmle_kernel, quant_conv,
+                                   quant_matmul)
+
+    return ((listmle_kernel.listmle_fwd, "launches"), (listmle_kernel.listmle_bwd, "launches"),
+            (listmle_kernel.ranking_loss_fwd, "launches"),
+            (listmle_kernel.ranking_loss_bwd, "launches"),
+            (quant_matmul.quant_matmul, "launches"),
+            (quant_conv.quant_conv2d, "window_launches"), (quant_conv.im2col_same, "calls"),
+            (fused_mbconv.fused_mbconv_infer, "launches"),
+            (banded_mbconv.banded_mbconv_infer, "launches"))
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainState:
@@ -144,6 +184,22 @@ class QuantState:
     with calibrated activation scales."""
 
     model: nn.Module
+
+
+@dataclasses.dataclass
+class _StepGraph:
+    """One captured train step: the graph, what it was captured for (the
+    module by weak reference, and ``Trainer._graph_key``), its input
+    buffers, its outputs (the loss and the finite flag) and the launches
+    it counted on each wrapper's counter."""
+
+    graph: "torch.cuda.CUDAGraph"
+    module: "weakref.ref"
+    key: tuple
+    inputs: Dict[str, torch.Tensor]
+    loss: torch.Tensor
+    finite: torch.Tensor
+    launches: Tuple[Tuple[Tuple[object, str], int], ...]
 
 
 class _HostResult:
@@ -213,6 +269,13 @@ class Trainer:
         self._folded: Dict[int, Tuple[nn.Module, nn.Module]] = {}
         self._packed: Dict[int, Tuple[nn.Module, Tuple[nn.Module, dict]]] = {}
         self._stop_requested = False
+        # the one-card step graph (train_step) and one generator a draw
+        # (re-seeded every replay)
+        self._graph: Optional[_StepGraph] = None
+        self._draws: Dict[str, torch.Generator] = {}
+        self._capturing = False
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     # ------------------------------------------------------------------
     def init_state(self, gen: Optional[torch.Generator] = None) -> TrainState:
@@ -294,7 +357,14 @@ class Trainer:
         for k, v in batch.items():
             if rows is not None and k in ("image", "gt", "mask") and v.shape[1] == rows.height:
                 v = v[:, rows.span[0]:rows.span[1]]
-            t = torch.as_tensor(v).to(self.device, non_blocking=True)
+            out[k] = torch.as_tensor(v).to(self.device, non_blocking=True)
+        return self._as_f32(out)
+
+    @staticmethod
+    def _as_f32(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A device batch as f32, a uint8 image rescaled to [0, 1]."""
+        out = {}
+        for k, t in batch.items():
             if k == "image" and t.dtype == torch.uint8:
                 t = t.to(torch.float32) / 255.0
             out[k] = t.to(torch.float32)
@@ -303,9 +373,17 @@ class Trainer:
     def _gen(self, state: TrainState, tag: str) -> RowsGenerator:
         """The step's generator of ``tag``; its batch draws are made at the
         global batch's shape and this rank keeps the rows of its data
-        index."""
-        return RowsGenerator(generator(state.seed, f"train/{tag}", state.step, self.device),
-                             self.mesh.data_index, self.mesh.data)
+        index. While the step graph is captured: the graph's generator of
+        ``tag``, which every replay re-seeds to the step's key."""
+        gen = (self._draws[tag] if self._capturing else
+               generator(state.seed, f"train/{tag}", state.step, self.device))
+        return RowsGenerator(gen, self.mesh.data_index, self.mesh.data)
+
+    def _reseed(self, state: TrainState) -> None:
+        """Set each draw's generator to ``generator(seed, "train/<tag>",
+        step)``: the seed, at offset 0."""
+        for tag, gen in self._draws.items():
+            gen.manual_seed(derive_seed(state.seed, f"train/{tag}", state.step))
 
     @torch.no_grad()
     def _rankings(self, state: TrainState, b: Dict[str, torch.Tensor]):
@@ -334,10 +412,25 @@ class Trainer:
 
     def _step(self, state: TrainState, images: torch.Tensor,
               rankings: torch.Tensor) -> Tuple[TrainState, StepMetrics]:
+        self._clear_serving_caches()  # the weights change in place
+        return self._finish(state, *self._update(state, images, rankings))
+
+    def _finish(self, state: TrainState, loss: torch.Tensor,
+                finite: torch.Tensor) -> Tuple[TrainState, StepMetrics]:
+        metrics = StepMetrics(loss=loss, lr=self.schedule(state.step), finite=finite)
+        if self.device.type == "cuda" and not self._capturing:
+            metrics.done = torch.cuda.Event()
+            metrics.done.record()
+        return state.replace(step=state.step + 1), metrics
+
+    def _update(self, state: TrainState, images: torch.Tensor,
+                rankings: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Forward, loss, backward and the guarded update of one step, in
+        place on the state's module and optimizer state: (loss, finite),
+        on the device."""
         cfg = self.cfg
         module = state.model
         params = trainable_params(module)
-        self._clear_serving_caches()  # the weights change in place
         for p in params:
             p.grad = None
         with span("step.forward"):
@@ -375,11 +468,7 @@ class Trainer:
                     buf.copy_(torch.where(finite, v, buf))
         for p in params:
             p.grad = None
-        metrics = StepMetrics(loss=loss, lr=self.schedule(state.step), finite=finite)
-        if self.device.type == "cuda":
-            metrics.done = torch.cuda.Event()
-            metrics.done.record()
-        return state.replace(step=state.step + 1), metrics
+        return loss, finite
 
     def _qenc_encoder(self, module: nn.Module) -> nn.Module:
         """The serving graph of ``module``'s frozen encoder that ``qenc``
@@ -416,14 +505,107 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
         """One step on an {"image", "gt", "mask"} batch: rankings are
-        sampled on the device."""
+        sampled on the device. On one card a replay of the step graph
+        (module docstring), else eager."""
         with span("step", state.step):
+            if self._graphed():
+                return self._graphed_step(state, batch)
+            return self._eager_step(state, batch)
+
+    def _eager_step(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
+        with span("step.upload"):
+            b = self._to_device(batch)
+        with span("step.sample"):
+            images, rankings = self._rankings(state, b)
+        del b  # the uploaded gt and mask are not kept through the step
+        return self._step(state, images, rankings)
+
+    # ------------------------------------------------------------------
+    # the step graph
+    # ------------------------------------------------------------------
+    def _graphed(self) -> bool:
+        """Whether ``train_step`` runs the step graph: on a card with no
+        process group (NCCL and the gloo-staged collectives stay eager),
+        and not under ``remat_encoder``, whose recompute reads and sets its
+        generator's state on the host."""
+        return (self.device.type == "cuda" and not self.mesh.active
+                and not self.cfg.remat_encoder)
+
+    def _graph_key(self, state: TrainState, batch: Dict[str, torch.Tensor]) -> tuple:
+        """What a step graph is captured for: the module, the storages of
+        its parameters (and which of them train), buffers and optimizer
+        state, the int8 encoder ``prepare_qenc`` made (the bf16 one is the
+        module's own, made at its first step), and the batch's names,
+        shapes and dtypes. Steps that update the state in place keep it."""
+        module = state.model
+        # the fields themselves (state_dict() would copy them)
+        opt = [t for t in vars(state.opt).values() if t is not None] if state.opt else []
+        int8 = self.cfg.qenc == "int8" and self._qenc is not None
+        return (id(module),
+                tuple((p.data_ptr(), p.requires_grad) for p in module.parameters()),
+                tuple(t.data_ptr() for t in (*module.buffers(), *opt)),
+                id(self._qenc[1]) if int8 else None,
+                tuple((k, tuple(t.shape), t.dtype) for k, t in batch.items()))
+
+    def _graphed_step(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
+        src = {k: torch.as_tensor(v) for k, v in batch.items()}
+        g = self._graph
+        if g is not None and g.module() is state.model and g.key == self._graph_key(state, src):
+            self._clear_serving_caches()  # the weights change in place
             with span("step.upload"):
-                b = self._to_device(batch)
-            with span("step.sample"):
-                images, rankings = self._rankings(state, b)
-            del b  # the uploaded gt and mask are not kept through the step
-            return self._step(state, images, rankings)
+                for k, t in src.items():
+                    g.inputs[k].copy_(t, non_blocking=True)
+            with span("step.replay"):
+                self._reseed(state)
+                g.graph.replay()
+            for (fn, name), n in g.launches:
+                setattr(fn, name, getattr(fn, name) + n)
+            self.graph_replays += 1
+            return self._finish(state, g.loss.clone(), g.finite.clone())
+        # a new state or batch shape: this step runs eagerly on a side
+        # stream, as the graph's warm-up, then the graph is captured
+        self._graph = None  # its memory goes before another capture
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._eager_step(state, batch)
+        main.wait_stream(side)
+        self._graph = self._capture(state, src)
+        return out
+
+    def _capture(self, state: TrainState, src: Dict[str, torch.Tensor]) -> _StepGraph:
+        """Capture the step's device work on ``state`` (nothing runs): the
+        batch from input buffers shaped as ``src``, the flip and the
+        sampler, and ``_step``: the forward, K1, the backward and the
+        guarded update. The key is taken after the warm-up, which makes
+        what a first step makes (the ``qenc`` bf16 encoder, K1's
+        workspace). The wrappers' counters are set back: the capture
+        launched nothing."""
+        key = self._graph_key(state, src)
+        inputs = {k: torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                  for k, t in src.items()}
+        for tag in STEP_DRAWS:
+            if tag not in self._draws:
+                self._draws[tag] = torch.Generator(device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        for gen in self._draws.values():
+            graph.register_generator_state(gen)
+        before = [(c, getattr(*c)) for c in _launch_counters()]
+        self._capturing = True
+        try:
+            with torch.cuda.graph(graph):
+                with span("step.sample"):
+                    images, rankings = self._rankings(state, self._as_f32(inputs))
+                _, metrics = self._step(state, images, rankings)
+        finally:
+            self._capturing = False
+            launches = tuple((c, getattr(*c) - n) for c, n in before if getattr(*c) != n)
+            for (fn, name), n in before:
+                setattr(fn, name, n)
+        self.graph_captures += 1
+        return _StepGraph(graph, weakref.ref(state.model), key, inputs, metrics.loss,
+                          metrics.finite, launches)
 
     def train_step_fixed(self, state: TrainState, batch) -> Tuple[TrainState, StepMetrics]:
         """One step on an {"image", "rankings"} batch (precomputed
@@ -476,8 +658,9 @@ class Trainer:
         and ``finite`` each have shape (n,), ``done`` is the last step's.
         The same result as ``n`` calls of ``resident_step`` (the draws are
         keyed by step). ``n <= 1`` gives ``resident_step`` itself. The steps
-        are queued one by one from Python; one CUDA graph of the chain (the
-        JAX package's single dispatch) is a speed property, ROADMAP.md P3."""
+        are queued one by one from Python, each a replay of the step graph
+        on one card; one CUDA graph of the whole chain (the JAX package's
+        single dispatch) is a speed property, ROADMAP.md P3."""
         if n <= 1:
             return self.resident_step
 

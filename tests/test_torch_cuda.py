@@ -684,6 +684,8 @@ def test_qenc_int8_step_runs_k4_at_every_dense_encoder_site(cuda_device):
         state, m = trainer.train_step(state, batch)
         assert bool(m.finite)
     torch.cuda.synchronize()
+    # the first step eagerly, then replays, which count the captured launches
+    assert (trainer.graph_captures, trainer.graph_replays) == (1, 2)
     assert k4.quant_matmul.launches - before == 3 * dense > 0
     assert QuantConv.derivations - builds == len(quant_sites(enc))  # packed once
     assert k1.ranking_loss_fwd.launches - fwd == 3
@@ -988,7 +990,9 @@ def test_qenc_int8_sharded_step_launches_k4_on_every_rank(cuda_device):
 def test_fit_profile_on_the_card_holds_its_waits_and_kernels(cuda_device, tmp_path):
     """``fit(profile_dir=)`` on the card: steps 1-3 in the trace, each
     with a ``fit.wait`` on the step before, and the kernels of each step
-    launched inside one of its phases (by correlation id)."""
+    launched inside one of its phases (by correlation id): step 0, before
+    the trace, is the step graph's warm-up and capture, steps 1-3 replays,
+    whose kernels the graph's launch in ``step.replay`` issues."""
     import json
 
     from pldepth_torch.core.config import ExperimentConfig
@@ -1011,7 +1015,8 @@ def test_fit_profile_on_the_card_holds_its_waits_and_kernels(cuda_device, tmp_pa
     # the wait after queueing step s is on step s - 1
     assert [e["args"]["ident"] for e in spans if e["name"] == "fit.wait"] == [0, 1, 2]
     phases = [e for e in spans if e["name"] in ("step.upload", "step.sample", "step.forward",
-                                                "step.backward", "step.update")]
+                                                "step.backward", "step.update", "step.replay")]
+    assert [e["args"]["ident"] for e in spans if e["name"] == "step.replay"] == [1, 2, 3]
     launches = {(e.get("args") or {}).get("correlation"): e for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")}
     steps = [e for e in spans if e["name"] == "step"]
@@ -1027,5 +1032,174 @@ def test_fit_profile_on_the_card_holds_its_waits_and_kernels(cuda_device, tmp_pa
     def launched_in(k):
         return any(p["ts"] <= launch(k)["ts"] <= p["ts"] + p["dur"] for p in phases)
 
-    # autograd's thread launches the backward's kernels inside step.backward
+    # a replay's kernels are launched inside step.replay
     assert sum(map(launched_in, kernels)) >= 0.9 * len(kernels)
+
+
+# The one-card step graph (train/trainer.py): a replayed step computes the
+# eager step, for both model families on both feeds and for each option
+# the graph takes; fit captures once and replays every later step; a step
+# makes no host sync; a profiler window opened after the capture still
+# names the replayed kernels.
+GRAPH_CASES = [("ff_effnet", "host", {}), ("ff_effnet", "resident", {}),
+               ("ff_redweb", "host", {}), ("ff_redweb", "resident", {}),
+               ("ff_effnet", "host", {"grad_accum": 2}),
+               ("ff_effnet", "resident", {"sparse_tail": True}),
+               ("ff_effnet", "host", {"qenc": "bf16"}), ("ff_effnet", "host", {"qenc": "int8"}),
+               ("ff_effnet", "host", {"qres": "int8"})]
+
+
+def _graph_config(model, **opts):
+    from pldepth_torch.core.config import ExperimentConfig
+
+    return ExperimentConfig(model_name=model, input_size=64, batch_size=2, ranking_size=5,
+                            rankings_per_image=20, freeze_encoder=True, **opts)
+
+
+def _state_tensors(state):
+    """The state's tensors themselves, the optimizer's fields included
+    (its ``state_dict()`` would copy them)."""
+    out = {f"param.{n}": p for n, p in state.model.named_parameters()}
+    out.update({f"buffer.{n}": b for n, b in state.model.named_buffers()})
+    out.update({f"opt.{k}": v for k, v in vars(state.opt).items()
+                if isinstance(v, torch.Tensor)})
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,feed,opts", GRAPH_CASES)
+def test_graphed_steps_equal_eager_steps(model, feed, opts, cuda_device):
+    """Six steps, graphed and eager in lockstep (f32, TF32 off): before
+    each step the eager trainer takes the graphed one's state. Equal bit
+    for bit: what the forward decides, the loss, the finite flag, every BN
+    running statistic and the optimizer's counters. The backward's atomic
+    adds (the bilinear upsample's and K1's) sum in an order no two eager
+    runs share either, so the moments are held within 1e-5 of their
+    largest element, and the parameters' change within 1e-2 of the LR
+    wherever the gradient is above 1e-3 of its largest (AMSGrad moves a
+    parameter by about the LR in the sign of its gradient: a gradient
+    within rounding of 0, as of a conv bias under a batch-statistics BN,
+    takes either sign)."""
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.data.resident import build_resident_store
+    from pldepth_torch.train import Trainer
+    from pldepth_torch.train.trainer import trainable_params
+
+    cfg = _graph_config(model, compute_dtype="float32", **opts)
+    batches = [_step_batch(seed=i) for i in range(6)]
+    store = build_resident_store(SyntheticDepthDataset(8, 64, 0), cuda_device) \
+        if feed == "resident" else None
+    graphed, eager = Trainer(cfg, steps_per_epoch=8), Trainer(cfg, steps_per_epoch=8)
+    eager._graphed = lambda: False
+    sg, se = graphed.init_state(), eager.init_state()
+    if cfg.qenc == "int8":
+        for tr, st in ((graphed, sg), (eager, se)):
+            tr.prepare_qenc(st, batches[0]["image"])
+
+    def step(tr, st, i):
+        return (tr.resident_step(st, store.arrays) if store is not None
+                else tr.train_step(st, batches[i]))
+
+    def flat(st):
+        return torch.cat([p.detach().reshape(-1) for p in trainable_params(st.model)])
+
+    for i in range(6):
+        with torch.no_grad():
+            tg = _state_tensors(sg)
+            for k, v in _state_tensors(se).items():
+                v.copy_(tg[k])
+        se = se.replace(step=sg.step)
+        before = flat(sg)
+        sg, mg = step(graphed, sg, i)
+        se, me = step(eager, se, i)
+        torch.cuda.synchronize()
+        assert torch.equal(mg.loss, me.loss) and torch.equal(mg.finite, me.finite), (
+            i, float(mg.loss), float(me.loss))
+        assert bool(mg.finite)
+        tg, te = _state_tensors(sg), _state_tensors(se)
+        for k, v in te.items():
+            if k.startswith("buffer.") or not v.is_floating_point():
+                assert torch.equal(tg[k], v), (i, k)
+            elif k.startswith("opt."):
+                assert float((tg[k] - v).abs().max()) <= 1e-5 * float(v.abs().max()), (i, k)
+        mu = se.opt.mu  # (1 - b1) g after the first update
+        sure = mu.abs() > 1e-3 * float(mu.abs().max())
+        lr = float(me.lr)
+        gap = ((flat(sg) - before) - (flat(se) - before))[sure].abs()
+        assert float(gap.max()) <= 1e-2 * lr if gap.numel() else True, (i, float(gap.max()), lr)
+    assert (graphed.graph_captures, graphed.graph_replays) == (1, 5)
+    assert (eager.graph_captures, eager.graph_replays) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_fit_captures_once_and_replays_every_later_step(cuda_device):
+    from pldepth_torch.data.datasets import SyntheticDepthDataset
+    from pldepth_torch.data.pipeline import BatchIterator
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(_graph_config("ff_effnet"), steps_per_epoch=6)
+    it = BatchIterator(SyntheticDepthDataset(16, 64, 0), 2, seed=0)
+    try:
+        state, _ = trainer.fit(trainer.init_state(), it, epochs=1)
+        # the first step eagerly as the warm-up, then the capture; every
+        # later step a replay
+        assert (trainer.graph_captures, trainer.graph_replays) == (1, 5)
+        state, _ = trainer.fit(state, it, epochs=2)  # the same state: the same graph
+        assert (state.step, trainer.graph_captures, trainer.graph_replays) == (12, 1, 11)
+        trainer.fit(trainer.init_state(), it, epochs=1)  # new tensors: a new capture
+        assert (trainer.graph_captures, trainer.graph_replays) == (2, 16)
+    finally:
+        it.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["ff_effnet", "ff_redweb"])
+def test_a_card_step_makes_no_host_sync(model, cuda_device):
+    """Past the first step (which makes the device constants), an eager
+    step and the replays make no host sync: nothing in the step waits for
+    the stream, so the step can be captured and the host runs ahead."""
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(_graph_config(model), steps_per_epoch=8)
+    state = trainer.init_state()
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in _step_batch().items()}
+    state, _ = trainer.train_step(state, batch)  # the warm-up and the capture
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = trainer._eager_step(state, batch)
+        for _ in range(2):
+            state, _ = trainer.train_step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert (trainer.graph_captures, trainer.graph_replays) == (1, 2)
+
+
+@pytest.mark.cuda
+def test_a_profiler_window_after_the_capture_names_the_replayed_kernels(cuda_device,
+                                                                        tmp_path):
+    """The benchmark's traced window opens after the capture: each
+    replayed step's kernels are still in the trace by name, K1's fused
+    forward and backward once a step, beside the rest of the step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pldepth_torch.train import Trainer
+
+    trainer = Trainer(_graph_config("ff_effnet"), steps_per_epoch=8)
+    state = trainer.init_state()
+    for i in range(2):
+        state, _ = trainer.train_step(state, _step_batch(seed=i))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):  # the first launches of a window can go unrecorded
+            torch.cuda._sleep(1000)
+        for i in range(2):
+            state, _ = trainer.train_step(state, _step_batch(seed=2 + i))
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "x.pt.trace.json"))
+    assert (trainer.graph_captures, trainer.graph_replays) == (1, 3)
+    kernels, device_ms, _ = _chip_smoke().trace_kernels(str(tmp_path))
+    k1 = {n: c for n, c in kernels.items() if n.startswith("k1_")}
+    assert k1 == {"k1_fwd_thread_kernel<5, 1>": 2, "k1_bwd_thread_kernel<5, 1>": 2}, k1
+    assert sum(kernels.values()) > 100 and device_ms > 0
